@@ -28,6 +28,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips with a reason where there is none)"
+    )
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _drop_compiled_programs_between_modules():
     """XLA:CPU intermittently SIGSEGV/SIGABRTs once a long-lived process has
