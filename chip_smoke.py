@@ -5,24 +5,29 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line):
   1. card: prints `nvidia-smi --query-gpu=name,power.limit`, requires CUDA;
-  2. build: compiles the FAST+NMS kernel (csrc/fast_nms.cu, nvcc, sm_90a);
+  2. build: compiles the FAST+NMS kernel (csrc/fast_nms.cu, nvcc, sm_90a) and
+     says whether the arena's native host library built (g++);
   3. kernel vs plain on the card: all 8 pyramid levels of both images of
-     bench frame 0, plus a random 75x140 image; tolerance 0 (torch.equal);
-     per-level times with CUDA events (median of 20 launches);
+     bench frame 0 in ONE launch, then images of odd shapes (75x140; 7x5;
+     200x17, narrower than a tile and taller; signed values) in one launch, and
+     the single-shape batch form; tolerance 0 (torch.equal). Then the
+     kernel's time per stereo frame: device time from a CUDA graph of 50
+     16-image calls between two events (L2 warm, as the front-end finds the
+     levels it has just written; and with the L2 flushed before every call),
+     the host's time for the one wrapper call, the plain version's device
+     time, and the bound from this frame's pixel count;
   4. main path: the bench world (bench.py's parameters) at 1241x376, the first
      49 stereo pairs (the initial frame + 6 chunks of 8) staged on the card,
      then a stereo SlamSystem (SlamConfig(), sync_every=8) through
      track_stereo_device; prints frames/s, ATE against ground truth
-     (SE3-aligned), lost frames, keyframes, map points, kernel launches and
-     peak device memory.
+     (SE3-aligned), lost frames, keyframes, map points, kernel launches (one
+     per frame) and peak device memory.
 Then one JSON line describing the kernel, and the device line last.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 
@@ -42,44 +47,27 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _cuda_ms(fn, reps: int = 20) -> float:
-    """Median device time of fn() over reps launches, CUDA events, after warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
-    dev = torch.device("cuda", 0)
-
+    from slam_framework_torch import native
     from slam_framework_torch.config import SlamConfig
     from slam_framework_torch.io import synthetic, trajectory
     from slam_framework_torch.ops import fast_cuda, pyramid
     from slam_framework_torch.system import SlamSystem
+    from slam_framework_torch.utils import cuda_timing as timing
+
+    print(timing.card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    dev = torch.device("cuda", 0)
 
     # ---- 2. build
     t0 = time.perf_counter()
     so = fast_cuda.build()
     print(f"build: {so} in {time.perf_counter() - t0:.2f} s", flush=True)
+    # without it the arena silently takes its numpy loops on the host
+    print(f"native arena library built: {native.load_arena_ops() is not None}", flush=True)
 
     # ---- 3. kernel vs plain on the card
     cfg = SlamConfig()
@@ -91,36 +79,52 @@ def main() -> None:
     pairs_np = [world.stereo_pair(f) for f in range(N_FRAMES)]
     print(f"world: {N_FRAMES} pairs rendered in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    left, right = (torch.from_numpy(a).to(dev).float() for a in pairs_np[0])
-    levels = list(zip(
-        pyramid.build_pyramid(left, cfg.orb.num_levels, cfg.orb.scale_factor),
-        pyramid.build_pyramid(right, cfg.orb.num_levels, cfg.orb.scale_factor),
-    ))
+    levels = []
+    for img in pairs_np[0]:
+        levels += pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(),
+                                        cfg.orb.num_levels, cfg.orb.scale_factor)
     rng = np.random.default_rng(7)
-    odd = torch.from_numpy(rng.integers(0, 256, (1, 75, 140)).astype(np.float32)).to(dev)
+    odd = [torch.from_numpy(rng.integers(0, 256, s).astype(np.float32)).to(dev)
+           for s in ((75, 140), (7, 5), (200, 17), (61, 99))]
+    odd[-1] = odd[-1] * 0.37 - 47.3  # values of both signs that are not whole numbers
     max_err = 0.0
-    kernel_ms = plain_ms = 0.0
-    cases = [(f"level {i} {tuple(l.shape)}", torch.stack([l, r])) for i, (l, r) in enumerate(levels)]
-    cases.append(("random (75, 140)", odd))
-    for name, imgs in cases:
-        got = fast_cuda.fast_nms_strength(imgs)
-        want = fast_cuda.fast_nms_strength_plain(imgs)
+    for what, imgs in (("frame 0, 8 levels x 2 images", levels), ("odd shapes", odd)):
+        fast_cuda.launches = 0
+        got = fast_cuda.fast_nms_strength_levels(imgs)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        if not torch.equal(got, want):
-            _fail(f"kernel != plain at {name}: max abs err {err}")
-        if name.startswith("level"):
-            # timed as the main path calls it: one launch per image
-            k = sum(_cuda_ms(lambda im=im: fast_cuda.fast_nms_strength(im)) for im in imgs)
-            p = sum(_cuda_ms(lambda im=im: fast_cuda.fast_nms_strength_plain(im)) for im in imgs)
-            kernel_ms += k
-            plain_ms += p
-            print(f"fast_nms {name}: equal, L+R kernel {k:.4f} ms, plain {p:.4f} ms", flush=True)
-        else:
-            print(f"fast_nms {name}: equal", flush=True)
-    print(f"fast_nms per stereo frame (16 calls): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
+        if fast_cuda.launches != 1:
+            _fail(f"{what}: {fast_cuda.launches} launches for one call")
+        for g, img in zip(got, imgs):
+            want = fast_cuda.fast_nms_strength_plain(img)
+            max_err = max(max_err, float((g - want).abs().max()))
+            if not torch.equal(g, want):
+                _fail(f"kernel != plain at {what} {tuple(img.shape)}: max abs err {max_err}")
+        print(f"fast_nms {what}: {[tuple(t.shape) for t in imgs]} equal in one launch", flush=True)
+    batch = torch.stack([odd[0], odd[0].flip(0)])
+    if not torch.equal(fast_cuda.fast_nms_strength(batch), fast_cuda.fast_nms_strength_plain(batch)):
+        _fail("kernel != plain on a (2, 75, 140) batch")
+
+    def frame_call():
+        return fast_cuda.fast_nms_strength_levels(levels)
+
+    pixels = sum(t.numel() for t in levels)
+    bound, bound_by = timing.bound_ms(pixels * fast_cuda.BYTES_PER_PIXEL, pixels * fast_cuda.OPS_PER_PIXEL)
+    kernel_ms = timing.device_ms(frame_call)
+    flushed_ms = timing.device_ms_flushed(frame_call, timing.l2_flusher(dev))
+    host_ms = timing.host_ms(frame_call)
+    event_ms = timing.event_ms(frame_call)
+    plain_ms = timing.device_ms(lambda: [fast_cuda.fast_nms_strength_plain(t) for t in levels], calls=5)
+    level_us = [timing.device_ms(lambda t=t: fast_cuda.fast_nms_strength_levels([t])) * 1e3
+                for t in levels[: cfg.orb.num_levels]]
+    print(
+        f"fast_nms per stereo frame ({len(levels)} images, {pixels} px, one launch): device "
+        f"{kernel_ms:.5f} ms L2-warm, {flushed_ms:.5f} ms L2-flushed; bound {bound:.5f} ms by {bound_by} "
+        f"({100 * bound / kernel_ms:.1f}% of it reached); host {host_ms:.5f} ms per call "
+        f"({event_ms:.5f} ms between events around one eager call); plain {plain_ms:.4f} ms device",
+        flush=True,
+    )
+    print("fast_nms one level image per launch, device us: "
+          + ", ".join(f"{tuple(t.shape)} {us:.2f}" for t, us in zip(levels, level_us)), flush=True)
 
     # ---- 4. main path
     pairs = [torch.from_numpy(np.stack([l, r])).to(dev) for l, r in pairs_np]
@@ -164,8 +168,8 @@ def main() -> None:
         _fail("a tracker state tensor is off the CUDA device")
     if lost or stats["resets"]:
         _fail(f"{lost} lost frames, {stats['resets']} resets")
-    if launches < 16 * N_FRAMES:
-        _fail(f"fast_nms launches {launches} < 16 x {N_FRAMES} frames")
+    if launches != N_FRAMES:
+        _fail(f"fast_nms launches {launches} != one per frame over {N_FRAMES} frames")
     if not ate <= ATE_BOUND_M:
         _fail(f"ATE {ate} m above the bound {ATE_BOUND_M} m")
 
@@ -178,6 +182,11 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+        "ms_l2_flushed": flushed_ms,
+        "host_ms": host_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,8 +1,8 @@
-"""The arena's native host loops (slam_framework_tpu/native/arena_ops.cpp), via ctypes.
+"""The arena's native host loops (csrc/arena_ops.cpp), via ctypes.
 
-The C++ source is the reference package's own, read by path; it is compiled
-with g++ at first use into this package's build directory, keyed on the
-source's hash. When no compiler works, `load_arena_ops` returns None and the
+The C++ source is this package's copy of the reference package's
+native/arena_ops.cpp; it is compiled with g++ at first use into this package's
+build directory, keyed on the source's hash. When no compiler works, `load_arena_ops` returns None and the
 arena takes its numpy paths.
 """
 
@@ -14,9 +14,9 @@ import os
 import subprocess
 import threading
 
-from slam_framework_torch import BUILD_DIR, REFERENCE_DIR
+from slam_framework_torch import BUILD_DIR, PACKAGE_DIR
 
-SOURCE = os.path.join(REFERENCE_DIR, "native", "arena_ops.cpp")
+SOURCE = os.path.join(PACKAGE_DIR, "csrc", "arena_ops.cpp")
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False

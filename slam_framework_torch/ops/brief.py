@@ -1,8 +1,9 @@
 """Rotated BRIEF (rBRIEF) 256-bit descriptors, batched over all keypoints.
 
-Port of slam_framework_tpu/ops/brief.py. The 256-pair sampling pattern is the
-reference package's `ops/orb_pattern.npy` (OpenCV's `bit_pattern_31_`), read
-by path. Rotation is quantized to ROTATION_BINS precomputed patterns.
+Port of slam_framework_tpu/ops/brief.py. The 256-pair sampling pattern is
+`orb_pattern.npy` beside this module (OpenCV's `bit_pattern_31_`, a copy of the
+reference package's file). Rotation is quantized to ROTATION_BINS precomputed
+patterns.
 
 Packing: the reference keeps descriptors as (N, 8) uint32, bit j of word w =
 pattern pair w*32 + j. torch has no uint32 shifts on the CPU, so the port
@@ -19,13 +20,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from slam_framework_torch import REFERENCE_DIR
-
 MAX_ROTATED_OFFSET = 19  # ceil(13 * sqrt(2)); image must be padded by this for sampling
 ROTATION_BINS = 64       # 5.6 deg angle quantization
 SIDE = 2 * MAX_ROTATED_OFFSET + 2  # 40
 
-PATTERN_PATH = os.path.join(REFERENCE_DIR, "ops", "orb_pattern.npy")
+PATTERN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "orb_pattern.npy")
 
 
 @functools.lru_cache(maxsize=1)

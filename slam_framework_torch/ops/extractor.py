@@ -4,14 +4,15 @@ Port of slam_framework_tpu/ops/extractor.py (`_extract_from_pyramid`). All
 outputs are fixed-shape (max_features slots + validity mask). `xy` is in
 level-0 pixels, `octave` is the pyramid level.
 
-FAST+NMS goes through ops/fast_cuda.fast_nms_strength: the hand-written CUDA
-kernel for a tensor on the card, its plain version for a CPU tensor. Each
-level of each image is one call, as on the reference's TPU path.
+FAST+NMS goes through ops/fast_cuda.fast_nms_strength_levels: the hand-written
+CUDA kernel for tensors on the card, its plain version for CPU tensors. The
+stereo front-end computes the maps of both pyramids in one launch and hands
+each extraction its own; an extraction that is given none computes them.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -46,18 +47,21 @@ class OrbExtractor:
             self.max_features, cfg.num_levels, cfg.scale_factor
         )
 
-    def extract_from_pyramid(self, levels: List[torch.Tensor], blurred: List[torch.Tensor]) -> Features:
-        """Features from a prebuilt fp32 pyramid and its blurred levels."""
+    def extract_from_pyramid(self, levels: List[torch.Tensor], blurred: List[torch.Tensor],
+                             nms_maps: Optional[Sequence[torch.Tensor]] = None) -> Features:
+        """Features from a prebuilt fp32 pyramid and its blurred levels.
+        nms_maps: fast_nms_strength_levels(levels), where the caller has it."""
         cfg = self.cfg
+        # one strength map + one NMS per level serves both FAST thresholds
+        # (suppression only comes from a strictly stronger neighbour)
+        if nms_maps is None:
+            nms_maps = fast_cuda.fast_nms_strength_levels(levels)
         feats = []
         for lvl, lvl_img in enumerate(levels):
             n_lvl = self.per_level[lvl]
             if n_lvl <= 0:
                 continue
-            # one strength map + one NMS serves both FAST thresholds (suppression
-            # only comes from a strictly stronger neighbour)
-            nms = fast_cuda.fast_nms_strength(lvl_img)
-            strength = fast.mask_border(nms, DETECT_MARGIN)
+            strength = fast.mask_border(nms_maps[lvl], DETECT_MARGIN)
             zero = torch.zeros_like(strength)
             score_hi = torch.where(strength > float(cfg.ini_thresh_fast), strength, zero)
             score_lo = torch.where(strength > float(cfg.min_thresh_fast), strength, zero)

@@ -12,7 +12,7 @@ import torch
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry import projection
 from slam_framework_torch.geometry.projection import Intrinsics
-from slam_framework_torch.ops import pyramid, stereo_match
+from slam_framework_torch.ops import fast_cuda, pyramid, stereo_match
 from slam_framework_torch.ops.extractor import Features, OrbExtractor
 
 
@@ -55,14 +55,16 @@ class StereoFrontend:
         cfg = self.cfg
         nl, sf = cfg.orb.num_levels, cfg.orb.scale_factor
         # one pyramid per image, shared between extraction and stereo matching
-        lf32 = left.to(torch.float32)
-        rf32 = right.to(torch.float32)
+        lf32 = left.to(torch.float32).contiguous()
+        rf32 = right.to(torch.float32).contiguous()
         lp = pyramid.build_pyramid(lf32, nl, sf)
         rp = pyramid.build_pyramid(rf32, nl, sf)
         lb = pyramid.build_blurred_pyramid(lf32, nl, sf)
         rb = pyramid.build_blurred_pyramid(rf32, nl, sf)
-        fl: Features = self.extractor.extract_from_pyramid(lp, lb)
-        fr: Features = self.extractor.extract_from_pyramid(rp, rb)
+        # FAST+NMS of all levels of both images in one kernel launch
+        nms = fast_cuda.fast_nms_strength_levels(lp + rp)
+        fl: Features = self.extractor.extract_from_pyramid(lp, lb, nms[:nl])
+        fr: Features = self.extractor.extract_from_pyramid(rp, rb, nms[nl:])
         # stereo matching searches raw rectified rows; undistortion applies to
         # the geometry coordinates only
         sm = stereo_match.match_stereo(fl, fr, lp, rp, self.K, self.extractor.scales)

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from slam_framework_torch import resolve_device
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry import se3
 from slam_framework_torch.map.arena import MapArena
@@ -82,7 +83,8 @@ class StereoTracker:
     def __init__(self, cfg: SlamConfig, arena: Optional[MapArena] = None, sync_every: int = 4,
                  device: Optional[torch.device] = None):
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        # None: the first CUDA device, or an error when there is none
+        self.device = resolve_device(device)
         self.frontend = StereoFrontend(cfg)
         self.K = self.frontend.K
         self.arena = arena or MapArena.create(cfg.capacity, cfg.capacity.max_features)

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from slam_framework_torch import resolve_device
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.io import trajectory
 from slam_framework_torch.map.arena import MapArena
@@ -28,17 +29,16 @@ class SlamSystem:
 
     def __init__(self, cfg: SlamConfig, sensor: Optional[str] = None, sync_every: int = 4,
                  device: Optional[torch.device] = None):
-        """device: where images, tracking state and the point block live
-        (default: the first CUDA device if there is one, else the CPU)."""
+        """device: where images, tracking state and the point block live.
+        None means the first CUDA device and raises when there is none; the
+        CPU is taken only when the caller passes it."""
         if sensor is not None and sensor != cfg.sensor:
             cfg = dataclasses.replace(cfg, sensor=sensor)
         if cfg.sensor != "stereo":
             raise ValueError(f"sensor {cfg.sensor!r} is not ported yet (stereo only)")
         self.cfg = cfg
         self.sync_every = sync_every
-        if device is None:
-            device = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_resets = 0
         self._build()
 

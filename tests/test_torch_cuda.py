@@ -23,15 +23,46 @@ def _card():
     return torch.device("cuda")
 
 
+def _images(shapes, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, 256, s).astype(np.float32)).to(dev) for s in shapes]
+
+
 @pytest.mark.parametrize("shape", [(2, 376, 1241), (1, 105, 346), (2, 75, 140), (1, 1, 1), (3, 33, 65)])
 def test_kernel_matches_plain_on_card(shape):
     dev = _card()
-    img = torch.from_numpy(np.random.default_rng(3).integers(0, 256, shape).astype(np.float32)).to(dev)
+    (img,) = _images([shape], dev)
     before = fast_cuda.launches
     got = fast_cuda.fast_nms_strength(img)
     torch.cuda.synchronize()
     assert fast_cuda.launches == before + 1
     assert torch.equal(got, fast_cuda.fast_nms_strength_plain(img))
+
+
+@pytest.mark.parametrize("shapes", [
+    [(376, 1241), (7, 5), (105, 346), (200, 17), (1, 1), (33, 121), (32, 120), (31, 119)],
+    [(40, 50)] * 33,  # more images than one launch's table holds
+])
+def test_levels_match_plain_on_mixed_shapes_in_one_launch(shapes):
+    dev = _card()
+    imgs = _images(shapes, dev)
+    imgs[0] = imgs[0] * 0.37 + 0.11  # values that are not whole numbers
+    imgs[1] = imgs[1] * 0.37 - 47.3  # of both signs
+    imgs[-1] = -imgs[-1]
+    imgs[-1][::3, ::2] = -0.0
+    before = fast_cuda.launches
+    got = fast_cuda.fast_nms_strength_levels(imgs)
+    torch.cuda.synchronize()
+    assert fast_cuda.launches == before + -(-len(shapes) // fast_cuda.MAX_IMAGES)
+    assert [tuple(g.shape) for g in got] == [tuple(s) for s in shapes]
+    for g, img in zip(got, imgs):
+        assert torch.equal(g, fast_cuda.fast_nms_strength_plain(img))
+
+
+def test_batch_larger_than_one_table_matches_plain():
+    dev = _card()
+    (img,) = _images([(40, 33, 65)], dev)
+    assert torch.equal(fast_cuda.fast_nms_strength(img), fast_cuda.fast_nms_strength_plain(img))
 
 
 def test_kernel_rejects_what_it_does_not_take():
@@ -40,3 +71,26 @@ def test_kernel_rejects_what_it_does_not_take():
         fast_cuda.fast_nms_strength(torch.zeros(1, 8, 8, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
         fast_cuda.fast_nms_strength(torch.zeros(8, 16, device=dev).T)
+
+
+def test_levels_reject_what_the_kernel_does_not_take():
+    dev = _card()
+    ok = torch.zeros(8, 8, device=dev)
+    with pytest.raises(TypeError):
+        fast_cuda.fast_nms_strength_levels([ok, torch.zeros(8, 8, dtype=torch.float16, device=dev)])
+    with pytest.raises(ValueError):
+        fast_cuda.fast_nms_strength_levels([ok, torch.zeros(8, 16, device=dev).T])
+    with pytest.raises(ValueError):
+        fast_cuda.fast_nms_strength_levels([ok, torch.zeros(2, 8, 8, device=dev)])
+    with pytest.raises(ValueError):
+        fast_cuda.fast_nms_strength_levels([ok, torch.zeros(8, 8)])  # one on the card, one not
+    with pytest.raises(ValueError):
+        fast_cuda.fast_nms_strength_levels([torch.zeros(8, 8), ok])
+
+
+def test_system_takes_the_card_by_default():
+    _card()
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.system import SlamSystem
+
+    assert SlamSystem(SlamConfig()).device.type == "cuda"

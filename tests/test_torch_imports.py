@@ -4,6 +4,7 @@ modules (config, arena, trajectory) equal the reference's; numerics pinned."""
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -117,7 +118,7 @@ def test_native_arena_ops_build_in_port_build_dir():
     lib = native.load_arena_ops()
     assert lib is not None
     assert native._lib_path().startswith(slam_framework_torch.BUILD_DIR)
-    assert native.SOURCE.startswith(slam_framework_torch.REFERENCE_DIR)
+    assert native.SOURCE.startswith(slam_framework_torch.PACKAGE_DIR)
 
 
 def test_trajectory_export_and_ate_match_reference(tmp_path):
@@ -134,3 +135,69 @@ def test_trajectory_export_and_ate_match_reference(tmp_path):
     ttraj.save_kitti(str(tmp_path / "a.txt"), T)
     jtraj.save_kitti(str(tmp_path / "b.txt"), T)
     assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
+
+
+def _code_lines(path):
+    """(line number, text) of a Python file's tokens that are neither comments
+    nor docstrings; other files: every line that is not a // comment."""
+    if not path.endswith(".py"):
+        with open(path, encoding="utf-8", errors="replace") as f:
+            return [(i, l) for i, l in enumerate(f, 1) if not l.lstrip().startswith("//")]
+    import ast
+    import tokenize
+
+    with open(path, "rb") as f:
+        tree = ast.parse(f.read())
+    doc_lines = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(getattr(first, "value", None), ast.Constant) \
+                    and isinstance(first.value.value, str):
+                doc_lines.update(range(first.lineno, first.end_lineno + 1))
+    out = []
+    with open(path, "rb") as f:
+        for tok in tokenize.tokenize(f.readline):
+            if tok.type in (tokenize.COMMENT, tokenize.ENCODING) or tok.start[0] in doc_lines:
+                continue
+            out.append((tok.start[0], tok.string))
+    return out
+
+
+def test_port_names_no_path_into_the_reference_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "slam_framework_torch")):
+        dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
+    assert len(files) > 30
+    # a "file.py:LINE" citation (the smoke's `replaces` label) is no path to open
+    cited = re.compile(r"slam_framework_tpu/[\w/]+\.py:\d+")
+    hits = [(os.path.relpath(f, REPO), no) for f in files for no, text in _code_lines(f)
+            if "slam_framework_tpu" in cited.sub("", text) or "REFERENCE_DIR" in text]
+    assert hits == []
+    assert not hasattr(slam_framework_torch, "REFERENCE_DIR")
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    ("slam_framework_torch/ops/orb_pattern.npy", "slam_framework_tpu/ops/orb_pattern.npy"),
+    ("slam_framework_torch/csrc/arena_ops.cpp", "slam_framework_tpu/native/arena_ops.cpp"),
+])
+def test_port_keeps_its_own_copy_of_reference_data(ours, theirs):
+    with open(os.path.join(REPO, ours), "rb") as a, open(os.path.join(REPO, theirs), "rb") as b:
+        assert a.read() == b.read()
+    from slam_framework_torch.ops import brief
+    assert os.path.dirname(brief.PATTERN_PATH) == os.path.join(slam_framework_torch.PACKAGE_DIR, "ops")
+
+
+def test_entry_points_raise_without_a_card_unless_given_the_cpu(monkeypatch):
+    from slam_framework_torch.pipeline.tracker import StereoTracker
+    from slam_framework_torch.system import SlamSystem
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfig.SlamConfig(capacity=_small_cap(tconfig))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlamSystem(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StereoTracker(cfg)
+    assert slam_framework_torch.resolve_device("cpu") == torch.device("cpu")
+    assert StereoTracker(cfg, device="cpu").device.type == "cpu"

@@ -54,7 +54,7 @@ def test_track_core_matches_reference(setup, frame):
     jt = setup["jt"]
     st, fd = setup["states"][frame - 1], setup["fds"][frame - 1]
     want = jax.device_get(setup["core"](st, fd, jt._block))
-    tt = TTracker(setup["tcfg"])
+    tt = TTracker(setup["tcfg"], device=torch.device("cpu"))
     got = tt._track_core(interop.track_state(jax.device_get(st)), interop.frame_data(jax.device_get(fd)),
                          interop.point_block(jax.device_get(jt._block)))
     (js, jsum, jpack, jdesc, jvis, jfound), (ts, tsum, tpack, tdesc, tvis, tfound) = want, got
@@ -74,7 +74,7 @@ def test_track_core_matches_reference(setup, frame):
 
 def _port_tracker_on_reference_map(setup):
     jt = setup["jt"]
-    tt = TTracker(setup["tcfg"], arena=interop.arena(jt.arena))
+    tt = TTracker(setup["tcfg"], arena=interop.arena(jt.arena), device=torch.device("cpu"))
     tt.ref_kf = jt.ref_kf
     return tt
 
@@ -123,7 +123,7 @@ def test_point_stats_and_keyframe_decision_match_reference(setup):
 
 def test_initialize_matches_reference(setup):
     jt = setup["jt"]
-    tt = TTracker(setup["tcfg"])
+    tt = TTracker(setup["tcfg"], device=torch.device("cpu"))
     l, r = setup["pairs"][0]
     assert tt._initialize(tt._to_pair(l, r), setup["world"].timestamps[0])
     ja, ta = jt.arena, tt.arena
