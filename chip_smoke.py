@@ -16,12 +16,29 @@ Phases (any failure exits non-zero before the final line):
      levels it has just written; and with the L2 flushed before every call),
      the host's time for the one wrapper call, the plain version's device
      time, and the bound from this frame's pixel count;
-  4. main path: the bench world (bench.py's parameters) at 1241x376, the first
-     49 stereo pairs (the initial frame + 6 chunks of 8) staged on the card,
-     then a stereo SlamSystem (SlamConfig(), sync_every=8) through
-     track_stereo_device; prints frames/s, ATE against ground truth
-     (SE3-aligned), lost frames, keyframes, map points, kernel launches (one
-     per frame) and peak device memory.
+  4. mapper programs on the card against the CPU (a device check, not a kernel
+     check: these programs are plain PyTorch, as they are left to XLA in the
+     reference): a seeded synthetic BA problem at the default capacities (32
+     cameras, 4096 points, 16384 observation slots, 8 per point) through
+     `local_ba.optimize` on cuda and on cpu: camera centres within 2 mm, inlier
+     masks equal on all but 16 of the 16,000 observations, two runs on the
+     card bit-equal; then `triangulate_with_neighbors` + `compact_first_match`
+     and `fuse_points_into_kfs` at 10 neighbours x 2048 features on blocks made
+     from the FrameData of bench frames 0-10: the same pairs / associations on
+     all but 0.5%, points within 1 cm, two runs bit-equal. Prints ms and
+     launches per call;
+  5. main path: the bench world (bench.py's parameters) at 1241x376, the first
+     329 stereo pairs (the initial frame + 41 chunks of 8: the whole script
+     stays within half of its 1200 s limit, so the shorter 161 was not
+     needed) staged on the card, then a stereo SlamSystem (SlamConfig(),
+     sync_every=8: tracker + local mapper) through track_stereo_device; prints
+     frames/s, ATE against ground truth (SE3-aligned), lost frames,
+     keyframes, map points, culled keyframes, BAs applied / aborted,
+     triangulated points, fused observations and merges, cap_clips, kernel
+     launches (one per frame), peak device memory and the stage timers.
+     Fails on a lost frame, a reset, a launch count other than one per frame,
+     a state tensor off the card, ATE above its bound, 12 keyframes or fewer,
+     no BA applied or no triangulated point.
 Then one JSON line describing the kernel, and the device line last.
 """
 
@@ -33,18 +50,182 @@ import time
 
 import numpy as np
 
-# Tracking only (no local mapper yet) holds the bench world for ~50 frames:
-# from frame 52 on, the port and the reference tracker alike lose it.
-N_FRAMES = 49
+# With the local mapper the port holds the bench world over its loop-free
+# length: the initial frame + 41 chunks of 8 (frame 330 would close the loop).
+N_FRAMES = 329
 SYNC = 8
-# Twice the port's ATE over the same 49 frames on the CPU (0.2809 m).
-ATE_BOUND_M = 0.562
+# Twice the port's ATE over the same 329 frames on the CPU (ATE_CPU_M, from
+# `python -m slam_framework_torch.tools.track_bench_world --frames 329 --device cpu`).
+ATE_CPU_M = 0.5559
+ATE_BOUND_M = 2 * ATE_CPU_M
+# mapper programs, card against CPU
+BA_CENTRE_TOL_M = 2e-3
+BA_INLIER_MISMATCH_MAX = 16      # of 16,000 observations
+MATCH_MISMATCH_FRAC_MAX = 0.005  # of the features / (neighbour, feature) entries
+TRI_POINT_TOL_M = 0.01
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
 def _fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def _count_launches(torch, fn):
+    """(kernels, memcpys + memsets) the device ran for one fn(), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    copies = sum(1 for e in dev_events if e.name.startswith(("Memcpy", "Memset")))
+    if not dev_events:
+        _fail("torch.profiler recorded no device event")
+    return len(dev_events) - copies, copies
+
+
+def _equal_runs(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _mapper_programs(torch, dev, cfg, world, pairs_np, timing) -> None:
+    """Phase 4: the mapper's device programs on the card against the CPU."""
+    from slam_framework_torch.geometry import se3
+    from slam_framework_torch.optim import local_ba
+    from slam_framework_torch.pipeline import mapping_ops
+    from slam_framework_torch.pipeline.frame import StereoFrontend
+    from slam_framework_torch.tools import ba_synthetic
+
+    cpu = torch.device("cpu")
+    cap = cfg.capacity
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- local BA at the default capacities
+    syn = ba_synthetic.build_problem(seed=11, C=cap.ba_cams, P=cap.ba_points, M=cap.ba_obs,
+                                     O=cap.ba_obs_per_point)
+    Kba = ba_synthetic.K_SYNTHETIC
+
+    def problem(device):
+        return local_ba.BAProblem(**{k: torch.from_numpy(v).to(device) for k, v in syn.arrays.items()})
+
+    prob = problem(dev)
+
+    def run_ba():
+        return local_ba.optimize(prob, Kba, iters_first=cfg.mapping.local_ba_iters_first,
+                                 iters_second=cfg.mapping.local_ba_iters_second)
+
+    t0 = time.perf_counter()
+    got = run_ba()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    again = run_ba()
+    if not _equal_runs(torch, got, again):
+        _fail("local_ba.optimize: two runs on the card differ")
+    t0 = time.perf_counter()
+    want = local_ba.optimize(problem(cpu), Kba)
+    cpu_s = time.perf_counter() - t0
+
+    def centres(poses):
+        return se3.se3_inverse(poses.cpu())[:, :3, 3].numpy()
+
+    n_cams = syn.poses_true.shape[0]
+    centre_err = float(np.abs(centres(got.cam_pose) - centres(want.cam_pose)).max())
+    truth_err = float(np.linalg.norm(centres(got.cam_pose)[:n_cams]
+                                     - centres(torch.from_numpy(syn.poses_true)), axis=1).max())
+    m_obs = int(syn.arrays["obs_mask"].sum())
+    mismatch = int((got.obs_inlier.cpu() != want.obs_inlier).sum())
+    print(f"local_ba card vs cpu ({cap.ba_cams} cams, {cap.ba_points} points, {cap.ba_obs} slots, {m_obs} "
+          f"observations): camera centres differ by {centre_err:.3e} m (tolerance {BA_CENTRE_TOL_M}), inlier "
+          f"masks differ on {mismatch} observations (at most {BA_INLIER_MISMATCH_MAX}), total chi2 "
+          f"{float(got.total_chi2):.3f} vs {float(want.total_chi2):.3f}, worst camera {truth_err:.4f} m from "
+          f"the truth, two card runs bit-equal; first call {first_s:.2f} s, cpu {cpu_s:.2f} s", flush=True)
+    if not centre_err <= BA_CENTRE_TOL_M or mismatch > BA_INLIER_MISMATCH_MAX:
+        _fail("local_ba.optimize disagrees between the card and the CPU")
+    if not truth_err < 0.03:
+        _fail(f"local_ba.optimize left a camera {truth_err} m from the truth")
+    ba_event_ms = timing.event_ms(run_ba, reps=5)
+    ba_host_ms = timing.host_ms(run_ba, reps=5)
+    ba_kernels, ba_copies = _count_launches(torch, run_ba)
+    try:  # an extra reading, not a check: device time alone, from a CUDA graph of one BA
+        ba_graph_ms = f"{timing.device_ms(run_ba, calls=1, replays=3):.3f} ms"
+    except Exception as e:  # noqa: BLE001
+        ba_graph_ms = f"not measured ({type(e).__name__}: {str(e)[:120]})"
+        torch.cuda.synchronize()
+    print(f"local_ba per BA of 15 LM iterations: {ba_event_ms:.2f} ms between events around one eager call, "
+          f"{ba_host_ms:.2f} ms of host time to enqueue it, {ba_kernels} kernels + {ba_copies} copies/memsets; "
+          f"device time alone (CUDA graph): {ba_graph_ms}", flush=True)
+
+    # ---- triangulation and fusion: blocks from the FrameData of bench frames 0..10
+    frontend = StereoFrontend(cfg)
+    K = frontend.K
+    Nn = cfg.mapping.triangulation_neighbors
+    fds = [frontend(*(torch.from_numpy(img).to(dev) for img in pairs_np[f])) for f in range(Nn + 1)]
+    poses = torch.from_numpy(np.asarray(world.poses[: Nn + 1], np.float32)).to(dev)
+
+    def block(f):
+        fd = fds[f]
+        return mapping_ops.KFBlock(pose=poses[f], xy=fd.xy, ur=fd.u_right, octave=fd.octave,
+                                   angle=fd.angle, desc=fd.desc, cand=fd.valid)
+
+    cur = block(Nn)
+    nbrs = mapping_ops.KFBlock(*[torch.stack(f) for f in zip(*[block(f) for f in range(Nn)])])
+    kw = dict(K=K, num_levels=cfg.orb.num_levels, scale_factor=cfg.orb.scale_factor)
+    wh = (cfg.camera.width, cfg.camera.height)
+
+    def on(device, blk):
+        return mapping_ops.KFBlock(*[t.to(device) for t in blk])
+
+    def run_tri(c=cur, n=nbrs):
+        return mapping_ops.compact_first_match(
+            mapping_ops.triangulate_with_neighbors(c, n, float(cfg.camera.baseline), **kw))
+
+    # points of the current frame from its stereo depth, as the tracker makes them
+    fd = fds[Nn]
+    has = fd.valid & (fd.depth > 0)
+    z = torch.where(has, fd.depth, torch.ones_like(fd.depth))
+    Xc = torch.stack([(fd.xy[:, 0] - K.cx) * z / K.fx, (fd.xy[:, 1] - K.cy) * z / K.fy, z], dim=-1)
+    Twc = se3.se3_inverse(poses[Nn])
+    pt_pos = se3.transform_points(Twc, Xc)
+    delta = pt_pos - Twc[:3, 3]
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    max_d = dist * cfg.orb.scale_factor ** fd.octave.float()
+    pts_in = (pt_pos, fd.desc, delta / dist[:, None], max_d / cfg.orb.scale_factor ** (cfg.orb.num_levels - 1),
+              max_d, has)
+
+    def run_fuse(p=pts_in, n=nbrs):
+        return mapping_ops.fuse_points_into_kfs(*p, n, image_wh=wh, **kw)
+
+    tri, fuse = run_tri(), run_fuse()
+    if not _equal_runs(torch, tri, run_tri()) or not torch.equal(fuse, run_fuse()):
+        _fail("triangulation or fusion: two runs on the card differ")
+    tri_cpu = run_tri(on(cpu, cur), on(cpu, nbrs))
+    fuse_cpu = run_fuse(tuple(t.cpu() for t in pts_in), on(cpu, nbrs))
+    tri_h = [t.cpu() for t in tri]
+    same = (tri_h[3] == tri_cpu.valid) & (~tri_cpu.valid | ((tri_h[0] == tri_cpu.ni) & (tri_h[1] == tri_cpu.nf)))
+    both = same & tri_cpu.valid
+    tri_bad = int((~same).sum())
+    pt_err = float((tri_h[2] - tri_cpu.pts)[both].abs().max()) if bool(both.any()) else 0.0
+    fuse_bad = int((fuse.cpu() != fuse_cpu).sum())
+    n_feat = tri_cpu.valid.numel()
+    print(f"triangulation card vs cpu ({Nn} neighbours x {n_feat} features): {int(tri_cpu.valid.sum())} features "
+          f"triangulated, {tri_bad} features with another (neighbour, feature) pair, points differ by "
+          f"{pt_err:.3e} m (tolerance {TRI_POINT_TOL_M}); fusion: {int((fuse_cpu >= 0).sum())} associations, "
+          f"{fuse_bad} of {fuse_cpu.numel()} entries differ; two card runs bit-equal", flush=True)
+    if int(tri_cpu.valid.sum()) == 0 or int((fuse_cpu >= 0).sum()) == 0:
+        _fail("triangulation or fusion found nothing on the bench frames")
+    if (tri_bad > MATCH_MISMATCH_FRAC_MAX * n_feat or fuse_bad > MATCH_MISMATCH_FRAC_MAX * fuse_cpu.numel()
+            or not pt_err <= TRI_POINT_TOL_M):
+        _fail("triangulation or fusion disagrees between the card and the CPU")
+    tri_k, tri_c = _count_launches(torch, run_tri)
+    fuse_k, fuse_c = _count_launches(torch, run_fuse)
+    print(f"triangulate_with_neighbors + compact_first_match: {timing.event_ms(run_tri, reps=5):.3f} ms per call "
+          f"(events around one eager call), {tri_k} kernels + {tri_c} copies; fuse_points_into_kfs: "
+          f"{timing.event_ms(run_fuse, reps=5):.3f} ms, {fuse_k} kernels + {fuse_c} copies; peak device memory "
+          f"of this phase {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB", flush=True)
 
 
 def main() -> None:
@@ -126,7 +307,10 @@ def main() -> None:
     print("fast_nms one level image per launch, device us: "
           + ", ".join(f"{tuple(t.shape)} {us:.2f}" for t, us in zip(levels, level_us)), flush=True)
 
-    # ---- 4. main path
+    # ---- 4. mapper programs on the card against the CPU
+    _mapper_programs(torch, dev, cfg, world, pairs_np, timing)
+
+    # ---- 5. main path
     pairs = [torch.from_numpy(np.stack([l, r])).to(dev) for l, r in pairs_np]
     torch.cuda.synchronize()
     warm = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
@@ -155,17 +339,25 @@ def main() -> None:
     if est.shape != (N_FRAMES, 4, 4) or not np.isfinite(est).all():
         _fail(f"trajectory shape {est.shape} or non-finite poses")
     ate = trajectory.ate_rmse(est, world.poses[:N_FRAMES], align="se3")
+    mapper = stats["mapper"]
     print(
         f"main path: {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.3f} frames/s, "
-        f"ATE {ate:.4f} m (bound {ATE_BOUND_M} m), lost {lost}, keyframes {stats['keyframes']}, "
-        f"map points {stats['map_points']}, resets {stats['resets']}, fast_nms launches {launches}, "
+        f"ATE {ate:.4f} m (bound {ATE_BOUND_M} m), lost {lost}, keyframes {stats['keyframes']} "
+        f"(+ {mapper['culled_keyframes']} culled), map points {stats['map_points']}, resets {stats['resets']}, "
+        f"BAs applied {mapper['ba_applied']} / aborted {stats['ba_aborts']}, triangulated points "
+        f"{mapper['triangulated']}, fused observations {mapper['fused_obs']}, merges {mapper['merged']}, "
+        f"cap_clips {json.dumps(stats['cap_clips'])}, fast_nms launches {launches}, "
         f"peak device memory {peak / 2**20:.1f} MiB",
         flush=True,
     )
     print(f"stage timers: {json.dumps(system.tracker.timers.summary())}", flush=True)
-    state_tensors = list(system.tracker._dstate) + list(system.tracker._block)
+    store = system.tracker.local_mapper.kf_store
+    state_tensors = list(system.tracker._dstate) + list(system.tracker._block) + [store.packs, store.descs]
     if any(t.device.type != "cuda" for t in state_tensors):
-        _fail("a tracker state tensor is off the CUDA device")
+        _fail("a tracker or mapper state tensor is off the CUDA device")
+    if stats["keyframes"] <= 12 or mapper["ba_applied"] < 1 or mapper["triangulated"] < 1:
+        _fail(f"the mapper did not work: {stats['keyframes']} keyframes, {mapper['ba_applied']} BAs applied, "
+              f"{mapper['triangulated']} triangulated points")
     if lost or stats["resets"]:
         _fail(f"{lost} lost frames, {stats['resets']} resets")
     if launches != N_FRAMES:

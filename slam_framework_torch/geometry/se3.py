@@ -114,7 +114,8 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # made on the device (no host-to-device copy, so the call can sit in a CUDA graph)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     bottom = bottom.expand(batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 

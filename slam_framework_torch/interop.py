@@ -1,7 +1,7 @@
 """Carry the reference package's state into the port's tensors.
 
-The JAX package's `FrameData`, `DeviceTrackState`, `PointBlock` and `MapArena`
-are handed over as numpy arrays (any object whose fields have the same names,
+The JAX package's `FrameData`, `DeviceTrackState`, `PointBlock`, `BAProblem`,
+`KFBlock`, `DeviceKFStore` and `MapArena` are handed over as numpy arrays (any object whose fields have the same names,
 e.g. the JAX NamedTuples after `np.asarray`). Descriptors, uint32 there, become
 int32 tensors with the same bits. This module never imports the reference.
 """
@@ -16,7 +16,10 @@ import torch
 
 from slam_framework_torch.config import CapacityConfig
 from slam_framework_torch.map.arena import MapArena
+from slam_framework_torch.optim.local_ba import BAProblem
 from slam_framework_torch.pipeline.frame import FrameData
+from slam_framework_torch.pipeline.kf_store import DeviceKFStore
+from slam_framework_torch.pipeline.mapping_ops import KFBlock
 from slam_framework_torch.pipeline.track_ops import PointBlock
 from slam_framework_torch.pipeline.tracker import DeviceTrackState
 
@@ -43,6 +46,25 @@ def track_state(src, device=None) -> DeviceTrackState:
 
 def point_block(src, device=None) -> PointBlock:
     return _named(PointBlock, src, device)
+
+
+def ba_problem(src, device=None) -> BAProblem:
+    return _named(BAProblem, src, device)
+
+
+def kf_block(src, device=None) -> KFBlock:
+    return _named(KFBlock, src, device)
+
+
+def kf_store(src, device=None) -> DeviceKFStore:
+    """A keyframe store holding the blocks of a reference store (its `packs`,
+    `descs` and `present` as numpy-convertible arrays)."""
+    packs = np.asarray(src.packs)
+    store = DeviceKFStore(packs.shape[0], packs.shape[1], device=device)
+    store.packs.copy_(to_tensor(packs))
+    store.descs.copy_(to_tensor(src.descs))
+    store.present[:] = np.asarray(src.present)
+    return store
 
 
 def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:

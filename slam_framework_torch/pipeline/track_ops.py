@@ -228,11 +228,9 @@ def fuse_candidates(
 
 def _invert_matches(res: matcher.MatchResult, n_rows: int, n_cols: int) -> torch.Tensor:
     """Row->col matches to per-column best row index (-1 none), dense
-    (argmin over an (R, C) masked distance matrix; lowest row wins ties)."""
-    cols = torch.arange(n_cols, dtype=torch.int32, device=res.idx.device)
-    chose = res.valid[:, None] & (res.idx[:, None] == cols[None, :])
-    d = torch.where(chose, res.dist[:, None], torch.full_like(chose, matcher.BIG, dtype=res.dist.dtype))
-    best, best_row = torch.min(d, dim=0)
+    (argmin over an (R, C) masked distance matrix; lowest row wins ties).
+    Leading batch dimensions are kept."""
+    best, best_row = matcher.best_row_per_column(res, n_cols)
     best_row = best_row.to(torch.int32)
     return torch.where(best < matcher.BIG, best_row, torch.full_like(best_row, -1))
 

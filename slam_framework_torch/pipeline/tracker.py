@@ -10,13 +10,26 @@ tracking core run frame by frame on the device (the reference's `lax.map` +
 `lax.scan`), and the host reads the chunk's summaries back once and makes the
 keyframe decisions `sync_every` frames behind, as the reference does.
 
-Not ported yet: the local mapper (triangulation, fusion, culling, local BA),
+Every keyframe goes through the local mapper (pipeline/local_mapper.py: point
+culling, multi-view triangulation, neighbour fusion, keyframe culling, local
+BA) before the block is rebuilt, and `flush()` finalizes it. Not ported yet:
 place recognition, relocalisation and loop closing. Tracking loss therefore
 behaves like the reference with no relocalizer: every later frame is lost.
 
-Chunks run serially. Without a mapper, the reference's pipeline depth 2
-tracks every chunk against the same block as depth 1, because the
-post-keyframe remap always precedes the next dispatch.
+Chunks run serially on the host, in the order of the reference's pipeline
+depth 1: run the chunk; read its results back together with the mapper's
+in-flight results (launched at the previous chunk's keyframes); process the
+chunk, where a keyframe first lands those results (fuse, then triangulation,
+then BA), culls points, launches its own triangulation and BA, culls
+keyframes, and only then rebuilds the block; a chunk without a keyframe lands
+them after its frames. What is kept of the reference's depth 2 is the chunk
+boundary at which every write-back is applied (its order fetch ->
+process-critical -> dispatch -> deferred lands them at the same boundary)
+and the remap before the next chunk. What is not kept is its overlap of the
+heavy mapper stage with the next chunk's device work: there the keyframe
+culling runs after the block rebuild instead of before it. The mapper's
+programs are launched without waiting for the device, so the host still goes
+on while the card works on them.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from slam_framework_torch.geometry import se3
 from slam_framework_torch.map.arena import MapArena
 from slam_framework_torch.pipeline import track_ops
 from slam_framework_torch.pipeline.frame import FrameData, StereoFrontend
+from slam_framework_torch.pipeline.local_mapper import LocalMapper
 from slam_framework_torch.utils.observability import MetricsLog, StageTimers, trace_span
 
 
@@ -99,6 +113,7 @@ class StereoTracker:
         self.records: list[FrameRecord] = []
         self.metrics = MetricsLog()
         self.timers = StageTimers()
+        self.local_mapper = LocalMapper(cfg, self.arena, self.K, timers=self.timers, device=self.device)
         self._dstate: Optional[DeviceTrackState] = None
         self._block: Optional[track_ops.PointBlock] = None
         self._block_ids: Optional[np.ndarray] = None   # (P,) int32 — point id per block slot
@@ -218,11 +233,19 @@ class StereoTracker:
                 found += f
         self._dstate = state
         with self.timers.time("drain"), trace_span("tracker/fetch"):
+            # the mapper's results launched at the previous chunk's keyframes
+            # come back with the chunk's own (None where nothing is in flight)
+            mapper = self.local_mapper
+            ba_data, tri_data, fuse_data = (
+                None if h is None else [t.cpu().numpy() for t in h]
+                for h in (mapper.ba_handles(), mapper.tri_handles(), mapper.fuse_handles())
+            )
             raw = (
                 [b[1] for b in batch], [b[2] for b in batch],
                 torch.stack(summaries).cpu().numpy(), vis.cpu().numpy(), found.cpu().numpy(),
                 torch.stack(packs).cpu().numpy(),
                 torch.stack(descs).cpu().numpy().view(np.uint32), block_ids,
+                ba_data, tri_data, fuse_data, packs, descs,
             )
         with self.timers.time("process"), trace_span("tracker/process"):
             self._process(raw)
@@ -265,13 +288,15 @@ class StereoTracker:
                 continue
             self._buf = [item]
             self._run_chunk()
+        self.local_mapper.finalize()
 
     # ------------------------------------------------------------------ host sync
 
     def _process(self, raw) -> None:
         """Host bookkeeping for one chunk: records, lost detection, keyframe
-        decision/creation, visible/found accrual."""
-        fids, tss, summaries, vis, found, packs, descs, block_ids = raw
+        decision/creation, visible/found accrual, mapper result landing."""
+        (fids, tss, summaries, vis, found, packs, descs, block_ids,
+         ba_data, tri_data, fuse_data, packs_dev, descs_dev) = raw
         # per-frame visible/found accrual against the block the chunk ran with
         live = block_ids >= 0
         pids = block_ids[live]
@@ -304,11 +329,23 @@ class StereoTracker:
                                  visible=int(s[21]), motion_inliers=int(s[22]),
                                  close_tracked=int(s[18]), close_new=int(s[19]))
                 if made_kf < self.max_kfs_per_chunk and self._need_new_keyframe(fid, s):
-                    self._create_keyframe(fid, ts, pose, packs[j], descs[j], block_ids)
+                    self._create_keyframe(
+                        fid, ts, pose, packs[j], descs[j], block_ids, packs_dev[j], descs_dev[j],
+                        ba_data=ba_data, tri_data=tri_data, fuse_data=fuse_data,
+                    )
+                    ba_data = tri_data = fuse_data = None  # consumed
                     rec.ref_kf = self.ref_kf
                     made_kf += 1
                 rec.rel_pose = self._rel_to_ref(pose, rec.ref_kf)
             self.records.append(rec)
+        # no keyframe this chunk: still land the fetched fuse / triangulation /
+        # local-BA results (a settled result never sits stale across chunks)
+        if fuse_data is not None:
+            self.local_mapper.apply_pending_fuse(prefetched=fuse_data)
+        if tri_data is not None:
+            self.local_mapper.apply_pending_triangulation(prefetched=tri_data)
+        if ba_data is not None:
+            self.local_mapper.flush_ba(prefetched=ba_data)
         if self.state == TrackingState.LOST:
             # drop buffered work — it descends from the lost state
             for (_pair, fid2, ts2) in self._buf:
@@ -366,8 +403,10 @@ class StereoTracker:
             host["valid"], point_ids.copy(),
         )
         idx = np.nonzero(has_depth)[0]
-        point_ids[idx] = self._create_points_from_stereo(
+        pids = self._create_points_from_stereo(
             kf, idx, pose, host["xy"], host["depth"], host["octave"], host["desc"])
+        point_ids[idx] = pids
+        self.local_mapper.note_new_points(pids, kf)
         self.arena.kf_point_idx[kf, :n] = point_ids
         self._rebuild_block()
         slot = self._ids_to_slots(point_ids)
@@ -423,10 +462,13 @@ class StereoTracker:
             return 0
         return int((arena.pt_valid[pids] & (arena.pt_obs_count[pids] >= min_obs)).sum())
 
-    def _create_keyframe(self, fid, ts, pose, pack, desc, block_ids) -> int:
+    def _create_keyframe(self, fid, ts, pose, pack, desc, block_ids, pack_dev, desc_dev,
+                         ba_data=None, tri_data=None, fuse_data=None) -> int:
         """CreateNewKeyFrame (tracker.cpp:1311-1379) for a synced frame, from the
         host copy of its feature pack. `block_ids` is the block layout the
-        frame's chunk ran with (pack slots index it)."""
+        frame's chunk ran with (pack slots index it). pack_dev / desc_dev are the
+        frame's feature block on the device, for the keyframe store; *_data are
+        the mapper's in-flight results as the drain read them back."""
         arena = self.arena
         cfg = self.cfg
         xy = pack[:, 0:2]
@@ -445,6 +487,9 @@ class StereoTracker:
         )
         kf = arena.add_keyframe(pose, fid, ts, xy, u_right, depth, octave, angle, desc, valid,
                                 point_ids.copy())
+        # device-to-device copy of the chunk's feature block into the keyframe
+        # store; the mapper's programs gather it by index
+        self.local_mapper.kf_store.set_from_device(kf, pack_dev, desc_dev)
         # new points from stereo depth (tracker.cpp:1340-1373): every unassociated
         # close feature, padded with the nearest far ones up to 100
         cand = np.nonzero((depth > 0) & valid & (point_ids < 0))[0]
@@ -452,14 +497,23 @@ class StereoTracker:
         n_close = int((depth[cand] < cfg.depth_threshold).sum())
         cand = cand[: max(n_close, 100)]
         if len(cand):
-            point_ids[cand] = self._create_points_from_stereo(kf, cand, pose, xy, depth, octave, desc)
+            pids = self._create_points_from_stereo(kf, cand, pose, xy, depth, octave, desc)
+            point_ids[cand] = pids
+            self.local_mapper.note_new_points(pids, kf)
         arena.kf_point_idx[kf] = point_ids
         # the block rebuild below selects points by the refreshed stats
         self._update_point_stats(point_ids[point_ids >= 0])
         self.ref_kf = kf
         self.ref_kf_tracked = int((point_ids >= 0).sum())
         self.last_kf_frame_id = fid
-        self.metrics.add(event="keyframe", frame_id=fid, kf=kf, tracked_points=self.ref_kf_tracked)
+        with self.timers.time("keyframe"), trace_span("tracker/keyframe"):
+            self.local_mapper.process_keyframe(
+                kf, prefetched_ba=ba_data, prefetched_tri=tri_data, prefetched_fuse=fuse_data)
+        self.metrics.add(
+            event="keyframe", frame_id=fid, kf=kf, tracked_points=self.ref_kf_tracked,
+            ba=dict(self.local_mapper.last_ba_stats),
+            triangulation=dict(self.local_mapper.last_triangulation),
+        )
         old_ids = self._block_ids
         self._rebuild_block()
         # the device state still indexes the pre-rebuild block; it is remapped

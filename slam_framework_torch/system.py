@@ -1,10 +1,10 @@
-"""SlamSystem façade for the stereo tracking slice of the port.
+"""SlamSystem façade for the stereo tracking + local mapping slice of the port.
 
 Port of slam_framework_tpu/system.py: construction from a config, the stereo
 per-frame entry points (TrackStereo, slam_system.cpp:89-129), the young-map
-reset, shutdown statistics and the KITTI trajectory export. Local mapping,
-place recognition and loop closing are not ported yet, so there is no
-vocabulary and no loop closer.
+reset, shutdown statistics and the KITTI trajectory export. The tracker owns
+the local mapper (pipeline/local_mapper.py). Place recognition and loop
+closing are not ported yet, so there is no vocabulary and no loop closer.
 """
 
 from __future__ import annotations
@@ -53,13 +53,18 @@ class SlamSystem:
         self._build()
 
     def shutdown(self) -> dict:
-        """Drain buffered frames; return run statistics (Shutdown :226-247)."""
+        """Drain buffered frames and the mapper's in-flight work; return run
+        statistics (Shutdown :226-247)."""
         self.tracker.flush()
+        mapper = self.tracker.local_mapper
         return {
             "frames": len(self.tracker.records),
             "keyframes": self.arena.n_valid_kfs,
             "map_points": self.arena.n_valid_pts,
             "resets": self.n_resets,
+            "ba_aborts": mapper.ba_aborts,
+            "cap_clips": dict(mapper.cap_clips),
+            "mapper": dict(mapper.totals),
         }
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float):

@@ -41,7 +41,10 @@ s = SlamSystem(cfg, sync_every=1, device=torch.device("cpu"))
 for f in range(3):
     s.track_stereo(*world.stereo_pair(f), world.timestamps[f])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "slam_framework_tpu"))
-print(json.dumps({"modules": len(mods), "frames": len(s.tracker.records),
+want = ["geometry.triangulation", "optim.local_ba", "pipeline.kf_store", "pipeline.mapping_ops",
+        "pipeline.local_mapper", "tools.ba_synthetic", "tools.track_bench_world"]
+missing = [w for w in want if "slam_framework_torch." + w not in sys.modules]
+print(json.dumps({"modules": len(mods), "missing": missing, "frames": len(s.tracker.records),
                   "lost": sum(r.lost for r in s.tracker.records), "bad": bad}))
 """
 
@@ -52,7 +55,8 @@ def test_port_imports_and_tracks_without_jax_cv2_or_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["modules"] >= 20 and res["frames"] == 3 and res["lost"] == 0
+    assert res["modules"] >= 26 and res["frames"] == 3 and res["lost"] == 0
+    assert res["missing"] == []
 
 
 def test_tf32_pinned_off():

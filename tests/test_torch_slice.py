@@ -1,12 +1,27 @@
-"""The port's stereo tracking slice against the reference StereoTracker over 16
-frames of the small world (640x240, 800 features, 4 levels, sync_every=4).
+"""The port's stereo slice against the reference StereoTracker on the small world
+(640x240, 800 features, 4 levels, sync_every=4), the same (port-rendered)
+pixels through both trackers, in two settings:
 
-The reference's mapper (`LocalMapper.process_keyframe` / `note_new_points`) is
-stubbed here, since the port has no mapper yet; both trackers see the same
-(port-rendered) pixels. Tolerances: the same keyframe frame ids and no lost
-frames; per-frame camera translation within 1 cm. Per-stage differences are
-fp32 rounding (pyramid sums, pose-optimisation sums, a few BRIEF bits); over
-16 frames they move the LM iterates by a few millimetres at most.
+Mapper stubbed in both packages (`LocalMapper.process_keyframe` /
+`note_new_points` do nothing), 16 frames: the tracking slice alone.
+Tolerances: the same keyframe frame ids and no lost frames; per-frame camera
+translation within 1 cm. Per-stage differences are fp32 rounding (pyramid sums,
+pose-optimisation sums, a few BRIEF bits); over 16 frames they move the LM
+iterates by a few millimetres at most.
+
+Mapper on in both, 24 frames, small BA capacities (ba_cams=16, ba_points=512,
+ba_obs=2048; the BA window is ba_cams - 8 cameras, so 8 would leave it none):
+tracking + triangulation + fusion + culling + local BA. Tolerances: the same
+keyframe frame ids, no lost frames, map points within 2%, at least one BA
+applied in both and none aborted, ATE against ground truth within 1 cm of each
+other (measured 0.0325 against 0.0318 m), per-frame camera translation within
+1 cm in the median and 10 cm at worst (measured: median 0.24 cm, worst 2.6 cm).
+The bound on the worst frame is loose on purpose: a longer run of this world
+(32 frames) has a weakly locked stretch around frame 28 where the two trackers
+differ by 8-14 cm, and by 11 cm with the mapper STUBBED in both as well, because
+a few differing BRIEF bits change which features the pose optimisation keeps;
+each tracker is 3-5 cm RMSE from the ground truth itself. The median carries
+the comparison.
 """
 
 import numpy as np
@@ -19,34 +34,47 @@ from slam_framework_tpu.pipeline.local_mapper import LocalMapper
 from slam_framework_tpu.pipeline.tracker import StereoTracker as JTracker
 from slam_framework_torch import config as tconf
 from slam_framework_torch.io import synthetic, trajectory
+from slam_framework_torch.pipeline.local_mapper import LocalMapper as TLocalMapper
 from slam_framework_torch.system import SlamSystem
 
 CAM = dict(fx=400.0, fy=400.0, cx=320.0, cy=120.0, width=640, height=240, fps=10.0, bf=400.0 * 0.54)
 CAP = dict(max_keyframes=64, max_map_points=65536, max_features=1024, local_window_points=8192)
+BA_CAP = dict(ba_cams=16, ba_points=512, ba_obs=2048)
 N = 16
+N_MAPPER = 24
+
+
+def _track_both(n_frames, cap, stub_mapper):
+    """The same n_frames pairs through the port's SlamSystem and the reference tracker."""
+    tcfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), orb=tconf.OrbConfig(num_features=800, num_levels=4),
+                            capacity=tconf.CapacityConfig(**cap))
+    world = synthetic.make_world(num_frames=n_frames + 14, cam=tcfg.camera, seed=1, speed=0.8, yaw_rate=0.004)
+    pairs = [world.stereo_pair(f) for f in range(n_frames)]
+    jcfg = JCfg(camera=JCam(**CAM), orb=JOrb(num_features=800, num_levels=4), capacity=JCap(**cap))
+    with pytest.MonkeyPatch.context() as mp:
+        if stub_mapper:
+            for cls in (LocalMapper, TLocalMapper):
+                mp.setattr(cls, "process_keyframe", lambda self, *a, **k: None)
+                mp.setattr(cls, "note_new_points", lambda self, *a, **k: None)
+        system = SlamSystem(tcfg, sync_every=4, device=torch.device("cpu"))
+        for f in range(n_frames):
+            system.track_stereo(*pairs[f], world.timestamps[f])
+        stats = system.shutdown()
+        jt = JTracker(jcfg, sync_every=4)
+        for f in range(n_frames):
+            jt.track(*pairs[f], world.timestamps[f])
+        jt.flush()
+    return dict(world=world, system=system, stats=stats, jt=jt)
 
 
 @pytest.fixture(scope="module")
 def runs():
-    tcfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), orb=tconf.OrbConfig(num_features=800, num_levels=4),
-                            capacity=tconf.CapacityConfig(**CAP))
-    world = synthetic.make_world(num_frames=30, cam=tcfg.camera, seed=1, speed=0.8, yaw_rate=0.004)
-    pairs = [world.stereo_pair(f) for f in range(N)]
+    return _track_both(N, CAP, stub_mapper=True)
 
-    system = SlamSystem(tcfg, sync_every=4, device=torch.device("cpu"))
-    for f in range(N):
-        system.track_stereo(*pairs[f], world.timestamps[f])
-    stats = system.shutdown()
 
-    jcfg = JCfg(camera=JCam(**CAM), orb=JOrb(num_features=800, num_levels=4), capacity=JCap(**CAP))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(LocalMapper, "process_keyframe", lambda self, *a, **k: None)
-        mp.setattr(LocalMapper, "note_new_points", lambda self, *a, **k: None)
-        jt = JTracker(jcfg, sync_every=4)
-        for f in range(N):
-            jt.track(*pairs[f], world.timestamps[f])
-        jt.flush()
-    return dict(world=world, system=system, stats=stats, jt=jt)
+@pytest.fixture(scope="module")
+def mapper_runs():
+    return _track_both(N_MAPPER, {**CAP, **BA_CAP}, stub_mapper=False)
 
 
 def _centers(poses):
@@ -75,5 +103,40 @@ def test_trajectory_follows_ground_truth_and_exports(runs, tmp_path):
     system.save_trajectory_kitti(str(path))
     Twc = trajectory.load_kitti(str(path))
     np.testing.assert_allclose(Twc[:, :3, 3], _centers(est), atol=1e-5)
-    assert runs["stats"] == {"frames": N, "keyframes": system.arena.n_valid_kfs,
-                             "map_points": system.arena.n_valid_pts, "resets": 0}
+    stats = runs["stats"]
+    assert {k: stats[k] for k in ("frames", "keyframes", "map_points", "resets")} == {
+        "frames": N, "keyframes": system.arena.n_valid_kfs, "map_points": system.arena.n_valid_pts, "resets": 0}
+    assert set(stats) == {"frames", "keyframes", "map_points", "resets", "ba_aborts", "cap_clips", "mapper"}
+
+
+def test_mapper_on_same_keyframes_and_no_lost_frames(mapper_runs):
+    tt, jt = mapper_runs["system"].tracker, mapper_runs["jt"]
+    assert len(tt.records) == len(jt.records) == N_MAPPER
+    assert not any(r.lost for r in tt.records) and not any(r.lost for r in jt.records)
+    np.testing.assert_array_equal(tt.arena.kf_frame_id[: tt.arena.num_kfs], jt.arena.kf_frame_id[: jt.arena.num_kfs])
+    np.testing.assert_array_equal(tt.arena.kf_valid[: tt.arena.num_kfs], jt.arena.kf_valid[: jt.arena.num_kfs])
+    assert tt.arena.num_kfs >= 5
+
+
+def test_mapper_on_map_points_within_2_percent_and_bas_applied(mapper_runs):
+    tt, jt, stats = mapper_runs["system"].tracker, mapper_runs["jt"], mapper_runs["stats"]
+    assert abs(tt.arena.n_valid_pts - jt.arena.n_valid_pts) <= 0.02 * jt.arena.n_valid_pts
+    j_bas = [r["ba"] for r in jt.metrics.records if r.get("event") == "keyframe" and r["ba"].get("cams", 0) >= 2]
+    assert stats["mapper"]["ba_applied"] >= 1 and len(j_bas) >= 1
+    assert stats["ba_aborts"] == jt.local_mapper.ba_aborts == 0
+    assert stats["mapper"]["triangulated"] > 100 and stats["mapper"]["fused_obs"] > 100
+    # the first BA saw the same problem in both packages
+    t_first = next(r["ba"] for r in tt.metrics.records if r.get("event") == "keyframe" and r["ba"])
+    assert (t_first["cams"], t_first["fixed"], t_first["points"]) == (j_bas[0]["cams"], j_bas[0]["fixed"], j_bas[0]["points"])
+    assert abs(t_first["obs"] - j_bas[0]["obs"]) <= 0.02 * j_bas[0]["obs"]
+    assert t_first["chi2"] == pytest.approx(j_bas[0]["chi2"], rel=0.05)
+
+
+def test_mapper_on_per_frame_translation_close_to_reference(mapper_runs):
+    system, jt, world = mapper_runs["system"], mapper_runs["jt"], mapper_runs["world"]
+    got, want = system.frame_poses(), jt.trajectory_poses()
+    d = np.linalg.norm(_centers(got) - _centers(want), axis=1)
+    assert np.median(d) < 0.01 and d.max() < 0.10, d
+    ate_t = trajectory.ate_rmse(got, world.poses[:N_MAPPER], align="se3")
+    ate_j = trajectory.ate_rmse(want, world.poses[:N_MAPPER], align="se3")
+    assert abs(ate_t - ate_j) < 0.01 and max(ate_t, ate_j) < 0.09, (ate_t, ate_j)

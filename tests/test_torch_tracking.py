@@ -1,8 +1,10 @@
 """Parity of the port's tracking core and keyframe bookkeeping with the reference
 StereoTracker (pipeline/tracker.py, pipeline/track_ops.py).
 
-The reference is initialised on frame 0 of the small world (mapper calls
-stubbed: the port has no mapper yet); its DeviceTrackState, PointBlock and
+The reference is initialised on frame 0 of the small world (its mapper's
+`note_new_points` stubbed: no keyframe is processed here, so the mapper plays no
+part; tests/test_torch_slice.py runs both packages with the mapper on); its
+DeviceTrackState, PointBlock and
 FrameData then go through `_track_core` in both packages via interop.py.
 
 Tolerances: pose within 1e-4 (fp32 pose optimisation, sums in another order,
