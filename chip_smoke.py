@@ -27,18 +27,33 @@ Phases (any failure exits non-zero before the final line):
      from the FrameData of bench frames 0-10: the same pairs / associations on
      all but 0.5%, points within 1 cm, two runs bit-equal. Prints ms and
      launches per call;
-  5. main path: the bench world (bench.py's parameters) at 1241x376, the first
-     329 stereo pairs (the initial frame + 41 chunks of 8: the whole script
-     stays within half of its 1200 s limit, so the shorter 161 was not
-     needed) staged on the card, then a stereo SlamSystem (SlamConfig(),
-     sync_every=8: tracker + local mapper) through track_stereo_device; prints
-     frames/s, ATE against ground truth (SE3-aligned), lost frames,
-     keyframes, map points, culled keyframes, BAs applied / aborted,
-     triangulated points, fused observations and merges, cap_clips, kernel
-     launches (one per frame), peak device memory and the stage timers.
-     Fails on a lost frame, a reset, a launch count other than one per frame,
-     a state tensor off the card, ATE above its bound, 12 keyframes or fewer,
-     no BA applied or no triangulated point.
+  5. loop programs on the card against the CPU (plain PyTorch, as they are
+     XLA programs in the reference), each run twice for bit-equality, with
+     kernels and ms per call: the vocabulary `transform` on the 2048
+     descriptors of three bench frames (word ids, groups and weights exactly
+     equal); `solve_sim3_ransac` on a synthetic two-view set in 2048 slots with
+     the same index sets (R, t within 1e-4, inlier flags equal up to 2 flips);
+     `pose_graph.optimize` on a drifted ring of 128 vertices (camera centres
+     within 1e-4 m, cost before and after printed); `optimize_global` on a
+     synthetic map of the bench world's size at its closure (80 cameras,
+     17,665 points, 105,990 observations in 128 / 32,768 / 131,072 slots;
+     camera centres within 2 mm, total chi2 within 0.1%), plus its device
+     time replayed as one CUDA graph if it captures;
+  6. main path: the bench world (bench.py's parameters) at 1241x376, all 330
+     stereo pairs (the circle meets itself) staged on the card, then a stereo
+     SlamSystem (SlamConfig(), sync_every=8, the shipped vocabulary: tracker,
+     local mapper, place recognition, loop closer, global BA) through
+     track_stereo_device; prints frames/s, ATE against ground truth
+     (SE3-aligned) at the end and, over the frames tracked before the
+     closure, just before it and at the end; the keyframe at which the loop
+     closed and its loop keyframe, the loop closer's last report, its Sim3
+     attempts and the time inside the loop stage; lost frames, keyframes, map
+     points, culled keyframes, BAs applied / aborted, triangulated points,
+     fused observations and merges, cap_clips, kernel launches (one per
+     frame), peak device memory and the stage timers. Fails on a lost frame,
+     a reset, no closed loop, a global BA not merged, a launch count other
+     than one per frame, a state tensor off the card, ATE above its bound, 12
+     keyframes or fewer, no BA applied or no triangulated point.
 Then one JSON line describing the kernel, and the device line last.
 """
 
@@ -50,19 +65,25 @@ import time
 
 import numpy as np
 
-# With the local mapper the port holds the bench world over its loop-free
-# length: the initial frame + 41 chunks of 8 (frame 330 would close the loop).
-N_FRAMES = 329
+# The whole bench sequence: the circle meets itself and the loop closer must fire.
+N_FRAMES = 330
 SYNC = 8
-# Twice the port's ATE over the same 329 frames on the CPU (ATE_CPU_M, from
-# `python -m slam_framework_torch.tools.track_bench_world --frames 329 --device cpu`).
-ATE_CPU_M = 0.5559
+# Twice the port's ATE over the same 330 frames on the CPU (ATE_CPU_M, from
+# `python -m slam_framework_torch.tools.track_bench_world --frames 330 --device cpu`).
+ATE_CPU_M = 0.3377
 ATE_BOUND_M = 2 * ATE_CPU_M
 # mapper programs, card against CPU
 BA_CENTRE_TOL_M = 2e-3
 BA_INLIER_MISMATCH_MAX = 16      # of 16,000 observations
 MATCH_MISMATCH_FRAC_MAX = 0.005  # of the features / (neighbour, feature) entries
 TRI_POINT_TOL_M = 0.01
+# loop programs, card against CPU
+SIM3_TOL = 1e-4
+SIM3_INLIER_FLIPS_MAX = 2
+POSE_GRAPH_CENTRE_TOL_M = 1e-4
+GBA_CENTRE_TOL_M = 2e-3
+GBA_CHI2_REL_TOL = 1e-3
+BOW_FRAMES = (0, 150, 300)
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
@@ -228,6 +249,225 @@ def _mapper_programs(torch, dev, cfg, world, pairs_np, timing) -> None:
           f"of this phase {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB", flush=True)
 
 
+def _timed(torch, timing, name, fn, reps=5, graph=False) -> str:
+    """'<ms> ms per call, <n> kernels + <c> copies' of one eager fn() on the card."""
+    ms = timing.event_ms(fn, reps=reps)
+    kernels, copies = _count_launches(torch, fn)
+    out = f"{name}: {ms:.3f} ms per call (events around one eager call), {kernels} kernels + {copies} copies"
+    if graph:
+        try:  # an extra reading, not a check: device time alone, from a CUDA graph of one call
+            out += f"; device time alone (CUDA graph): {timing.device_ms(fn, calls=1, replays=3):.3f} ms"
+        except Exception as e:  # noqa: BLE001
+            out += f"; device time alone (CUDA graph): not measured ({type(e).__name__}: {str(e)[:120]})"
+            torch.cuda.synchronize()
+    return out
+
+
+def _ring_problem(n: int = 128, pad_e: int = 256, seed: int = 5):
+    """A drifted ring as a pose graph, numpy fields: n cameras on a circle, the
+    estimates carrying accumulated odometry noise, exact relative poses on the
+    ring edges (k -> k+1, the last closing the loop) and on (k -> k+2) chords,
+    vertex 0 fixed, edge slots padded to `pad_e`."""
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((n, 4, 4))
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        fwd, up = np.array([-np.sin(a), np.cos(a), 0.0]), np.array([0.0, 0.0, -1.0])
+        Twc = np.eye(4)
+        Twc[:3, :3] = np.stack([np.cross(up, fwd), up, fwd], axis=1)
+        Twc[:3, 3] = [30.0 * np.cos(a), 30.0 * np.sin(a), 0.0]
+        gt[k] = np.linalg.inv(Twc)
+    est = [gt[0]]
+    for k in range(1, n):
+        w, u = rng.normal(0, 0.004, 3), rng.normal(0, 0.02, 3)
+        th = np.linalg.norm(w)
+        Wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        noise = np.eye(4)
+        noise[:3, :3] = np.eye(3) + np.sin(th) / th * Wx + (1 - np.cos(th)) / th**2 * (Wx @ Wx)
+        noise[:3, 3] = u
+        est.append(noise @ gt[k] @ np.linalg.inv(gt[k - 1]) @ est[-1])
+    est = np.stack(est)
+    e_i = np.concatenate([np.arange(n), np.arange(n - 2)])
+    e_j = np.concatenate([(np.arange(n) + 1) % n, np.arange(n - 2) + 2])
+    E = len(e_i)
+    rel = np.stack([gt[j] @ np.linalg.inv(gt[i]) for i, j in zip(e_i, e_j)])
+    pad = pad_e - E
+    f32 = np.float32
+    return dict(
+        v_R=est[:, :3, :3].astype(f32), v_t=est[:, :3, 3].astype(f32), v_s=np.ones(n, f32),
+        v_fixed=np.arange(n) == 0, v_mask=np.ones(n, bool),
+        e_i=np.concatenate([e_i, np.zeros(pad)]).astype(np.int32),
+        e_j=np.concatenate([e_j, np.zeros(pad)]).astype(np.int32),
+        e_R=np.concatenate([rel[:, :3, :3], np.tile(np.eye(3), (pad, 1, 1))]).astype(f32),
+        e_t=np.concatenate([rel[:, :3, 3], np.zeros((pad, 3))]).astype(f32),
+        e_s=np.ones(pad_e, f32), e_mask=np.arange(pad_e) < E,
+        e_weight=(np.arange(pad_e) < E).astype(f32),
+    ), gt
+
+
+def _two_view_problem(K, n_slots: int = 2048, n_valid: int = 300, n_out: int = 90, seed: int = 6):
+    """Matched points of two keyframes under a known rigid motion, pixel noise,
+    gross 3-D outliers among the valid matches, in the 2048 feature slots the
+    loop closer hands the solver."""
+    rng = np.random.default_rng(seed)
+    n = n_slots
+    pts2 = np.stack([rng.uniform(-12, 12, n), rng.uniform(-3, 3, n), rng.uniform(5, 40, n)], -1)
+    w = np.array([0.05, 0.3, -0.02])
+    th = np.linalg.norm(w)
+    Wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    R = np.eye(3) + np.sin(th) / th * Wx + (1 - np.cos(th)) / th**2 * (Wx @ Wx)
+    t = np.array([2.0, 0.3, -1.0])
+    pts1 = pts2 @ R.T + t
+
+    def proj(P):
+        return np.stack([K.fx * P[:, 0] / P[:, 2] + K.cx, K.fy * P[:, 1] / P[:, 2] + K.cy], -1)
+
+    uv1 = proj(pts1) + rng.normal(0, 0.5, (n, 2))
+    uv2 = proj(pts2) + rng.normal(0, 0.5, (n, 2))
+    pts1[rng.choice(n_valid, n_out, replace=False)] += rng.uniform(2, 6, (n_out, 3))
+    s2_1 = 1.44 ** rng.integers(0, 4, n)
+    s2_2 = 1.44 ** rng.integers(0, 4, n)
+    arrays = [a.astype(np.float32) for a in (pts1, pts2, uv1, uv2, s2_1, s2_2)]
+    return arrays, np.arange(n) < n_valid, R, t
+
+
+def _loop_programs(torch, dev, cfg, pairs_np, timing) -> None:
+    """Phase 5: the loop stage's device programs on the card against the CPU.
+    pairs_np: the rendered stereo pairs, indexable by the frames in BOW_FRAMES."""
+    from slam_framework_torch.bow import vocabulary as bow_vocab
+    from slam_framework_torch.optim import global_ba, pose_graph
+    from slam_framework_torch.pipeline.frame import StereoFrontend
+    from slam_framework_torch.solvers import sim3solver
+    from slam_framework_torch.tools import ba_synthetic
+
+    cpu = torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def centres(R, t, s):
+        return -torch.einsum("nji,nj->ni", R.cpu(), t.cpu() / s.cpu()[:, None]).numpy()
+
+    # ---- vocabulary descent of real bench frames' descriptors
+    vocab = bow_vocab.load(bow_vocab.SHIPPED_VOCABULARY)
+    tab_dev, tab_cpu = vocab.device_tables(dev), vocab.device_tables(cpu)
+    frontend = StereoFrontend(cfg)
+    n_words = 0
+    for f in BOW_FRAMES:
+        fd = frontend(*(torch.from_numpy(img).to(dev) for img in pairs_np[f]))
+
+        def run_bow(desc=fd.desc, valid=fd.valid, tab=tab_dev):
+            return bow_vocab.transform(tab, desc, valid, vocab.depth, vocab.k)
+
+        got = run_bow()
+        want = run_bow(fd.desc.cpu(), fd.valid.cpu(), tab_cpu)
+        if not _equal_runs(torch, got, run_bow()):
+            _fail(f"vocabulary.transform: two runs on the card differ (frame {f})")
+        for g, w, name in zip(got, want, ("word ids", "groups", "weights")):
+            if not torch.equal(g.cpu(), w):
+                _fail(f"vocabulary.transform: {name} differ between the card and the CPU on frame {f}: "
+                      f"{int((g.cpu() != w).sum())} of {w.numel()}")
+        n_words += int((want[0] >= 0).sum())
+    print(f"vocabulary.transform card vs cpu ({vocab.num_nodes} nodes, k={vocab.k}, depth={vocab.depth}; bench "
+          f"frames {BOW_FRAMES}, {fd.desc.shape[0]} descriptors each, {n_words} valid): word ids, groups and "
+          f"weights exactly equal, two card runs bit-equal; " + _timed(torch, timing, "per frame", run_bow), flush=True)
+
+    # ---- Sim3 RANSAC on a synthetic two-view set, the same index sets on both sides
+    K = frontend.K
+    arrays, mask, R_true, t_true = _two_view_problem(K)
+    sets = sim3solver.sample_index_sets(torch.from_numpy(mask), 256, torch.Generator().manual_seed(7))
+
+    def run_sim3(device=dev):
+        args = [torch.from_numpy(a).to(device) for a in arrays] + [torch.from_numpy(mask).to(device)]
+        return sim3solver.solve_sim3_ransac(*args, K, sets, fix_scale=True)
+
+    got, want = run_sim3(), run_sim3(cpu)
+    if not _equal_runs(torch, got, run_sim3()):
+        _fail("solve_sim3_ransac: two runs on the card differ")
+    dR = float((got.R.cpu() - want.R).abs().max())
+    dt = float((got.t.cpu() - want.t).abs().max())
+    flips = int((got.inliers.cpu() != want.inliers).sum())
+    print(f"solve_sim3_ransac card vs cpu ({int(mask.sum())} matches in {len(mask)} slots, 256 hypotheses, the same "
+          f"index sets): R differs by {dR:.3e}, t by {dt:.3e} (tolerance {SIM3_TOL}), {flips} inlier flags differ (at "
+          f"most {SIM3_INLIER_FLIPS_MAX}), {int(got.n_inliers)} inliers, R {float(np.abs(got.R.cpu().numpy() - R_true).max()):.2e} "
+          f"and t {float(np.abs(got.t.cpu().numpy() - t_true).max()):.2e} from the truth, two card runs bit-equal; "
+          + _timed(torch, timing, "per attempt", run_sim3), flush=True)
+    if not (dR <= SIM3_TOL and dt <= SIM3_TOL) or flips > SIM3_INLIER_FLIPS_MAX or not bool(got.ok):
+        _fail("solve_sim3_ransac disagrees between the card and the CPU")
+
+    # ---- pose graph on a drifted ring
+    ring, gt = _ring_problem()
+
+    def ring_problem(device):
+        return pose_graph.PoseGraphProblem(**{k: torch.from_numpy(v).to(device) for k, v in ring.items()})
+
+    prob = ring_problem(dev)
+
+    def run_pg():
+        return pose_graph.optimize(prob, iters=cfg.loop.essential_graph_iters)
+
+    got = run_pg()
+    want = pose_graph.optimize(ring_problem(cpu), iters=cfg.loop.essential_graph_iters)
+    if not _equal_runs(torch, got, run_pg()):
+        _fail("pose_graph.optimize: two runs on the card differ")
+    c_got, c_want = centres(got.v_R, got.v_t, got.v_s), centres(want.v_R, want.v_t, want.v_s)
+    c_gt = -np.einsum("nji,nj->ni", gt[:, :3, :3], gt[:, :3, 3])
+    c_0 = centres(prob.v_R, prob.v_t, prob.v_s)
+    centre_err = float(np.linalg.norm(c_got - c_want, axis=1).max())
+
+    def rmse(c):
+        return float(np.sqrt(np.mean(np.sum((c - c_gt) ** 2, axis=1))))
+
+    print(f"pose_graph.optimize card vs cpu (ring of {len(gt)} vertices, {int(ring['e_mask'].sum())} edges in "
+          f"{len(ring['e_mask'])} slots, {cfg.loop.essential_graph_iters} GN x 60 PCG): camera centres differ by "
+          f"{centre_err:.3e} m (tolerance {POSE_GRAPH_CENTRE_TOL_M}); cost {float(got.initial_cost):.6e} -> "
+          f"{float(got.final_cost):.6e} (cpu {float(want.final_cost):.6e}); RMSE of the centres against the truth "
+          f"{rmse(c_0):.4f} m -> {rmse(c_got):.4f} m; two card runs bit-equal; "
+          + _timed(torch, timing, "per optimisation", run_pg, reps=2), flush=True)
+    if not centre_err <= POSE_GRAPH_CENTRE_TOL_M or not float(got.final_cost) < 1e-3 * float(got.initial_cost):
+        _fail("pose_graph.optimize disagrees between the card and the CPU, or did not reduce its cost")
+
+    # ---- global BA at the size of the bench map at its closure
+    syn = ba_synthetic.build_global_problem(seed=12)
+    Kba = ba_synthetic.K_SYNTHETIC
+
+    def gba_problem(device):
+        return global_ba.GlobalBAProblem(**{k: torch.from_numpy(v).to(device) for k, v in syn.arrays.items()})
+
+    gprob = gba_problem(dev)
+
+    def run_gba():
+        return global_ba.optimize_global(gprob, Kba)
+
+    got = run_gba()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = global_ba.optimize_global(gba_problem(cpu), Kba)
+    cpu_s = time.perf_counter() - t0
+    if not _equal_runs(torch, got, run_gba()):
+        _fail("optimize_global: two runs on the card differ")
+
+    def cam_centres(poses):
+        poses = poses.cpu().numpy().astype(np.float64)
+        return -np.einsum("cji,cj->ci", poses[:, :3, :3], poses[:, :3, 3])
+
+    n_cams = syn.poses_true.shape[0]
+    centre_err = float(np.linalg.norm(cam_centres(got.cam_pose) - cam_centres(want.cam_pose), axis=1).max())
+    truth_err = float(np.linalg.norm(cam_centres(got.cam_pose)[:n_cams]
+                                     - cam_centres(torch.from_numpy(syn.poses_true)), axis=1).max())
+    chi2_rel = abs(float(got.total_chi2) - float(want.total_chi2)) / float(want.total_chi2)
+    a = syn.arrays
+    print(f"optimize_global card vs cpu ({n_cams} cameras, {syn.pts_true.shape[0]} points, {int(a['obs_mask'].sum())} "
+          f"observations in {a['cam_pose'].shape[0]} / {a['pt_pos'].shape[0]} / {a['obs_cam'].shape[0]} slots, "
+          f"{a['cam_obs_slots'].shape[1]} per camera; 5 + 10 LM x 60 PCG; the loop closer's call runs 10 LM): camera "
+          f"centres differ by {centre_err:.3e} m (tolerance {GBA_CENTRE_TOL_M}), total chi2 {float(got.total_chi2):.3f} "
+          f"vs {float(want.total_chi2):.3f} (relative {chi2_rel:.2e}, tolerance {GBA_CHI2_REL_TOL}), inlier masks "
+          f"differ on {int((got.obs_inlier.cpu() != want.obs_inlier).sum())} observations, worst camera "
+          f"{truth_err:.4f} m from the truth, two card runs bit-equal; cpu {cpu_s:.2f} s; "
+          + _timed(torch, timing, "per global BA", run_gba, reps=2, graph=True)
+          + f"; peak device memory of this phase {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB", flush=True)
+    if not centre_err <= GBA_CENTRE_TOL_M or not chi2_rel <= GBA_CHI2_REL_TOL or not truth_err < 0.03:
+        _fail("optimize_global disagrees between the card and the CPU")
+
+
 def main() -> None:
     import torch
 
@@ -310,7 +550,10 @@ def main() -> None:
     # ---- 4. mapper programs on the card against the CPU
     _mapper_programs(torch, dev, cfg, world, pairs_np, timing)
 
-    # ---- 5. main path
+    # ---- 5. loop programs on the card against the CPU
+    _loop_programs(torch, dev, cfg, pairs_np, timing)
+
+    # ---- 6. main path
     pairs = [torch.from_numpy(np.stack([l, r])).to(dev) for l, r in pairs_np]
     torch.cuda.synchronize()
     warm = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
@@ -320,6 +563,16 @@ def main() -> None:
     del warm
 
     system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
+    # the trajectory as it stood just before the loop correction rewrote the map
+    before = {}
+    correct_loop = system.loop_closer._correct_loop
+
+    def recording_correct_loop(kf, cand):
+        before.update(kf=kf, loop_kf=cand.kf, poses=system.tracker.trajectory_poses(),
+                      frames=[r.frame_id for r in system.tracker.records])
+        return correct_loop(kf, cand)
+
+    system.loop_closer._correct_loop = recording_correct_loop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fast_cuda.launches = 0
@@ -350,9 +603,30 @@ def main() -> None:
         f"peak device memory {peak / 2**20:.1f} MiB",
         flush=True,
     )
-    print(f"stage timers: {json.dumps(system.tracker.timers.summary())}", flush=True)
+    timers = system.tracker.timers.summary()
+    print(f"stage timers: {json.dumps(timers)}", flush=True)
+    closer = system.loop_closer
+    report = closer.last_report
+    if stats["loops_closed"] < 1 or not before:
+        _fail(f"no loop closed in {N_FRAMES} frames: {closer.n_sim3_attempts} Sim3 attempts, last report {report}")
+    n_before = len(before["frames"])
+    ate_before = trajectory.ate_rmse(before["poses"], world.poses[before["frames"]], align="se3")
+    ate_prefix = trajectory.ate_rmse(est[:n_before], world.poses[:n_before], align="se3")
+    loop_ms = timers.get("loop", {}).get("total_ms", float("nan"))
+    print(
+        f"loop stage: {stats['loops_closed']} loop closed at keyframe {before['kf']} (frame "
+        f"{int(system.arena.kf_frame_id[before['kf']])}) against keyframe {before['loop_kf']}, after "
+        f"{closer.n_sim3_attempts} Sim3 attempts; ATE over the {n_before} frames tracked before the closure "
+        f"{ate_before:.4f} m just before it, {ate_prefix:.4f} m at the end; ATE over all {N_FRAMES} frames at the "
+        f"end {ate:.4f} m; last report {json.dumps(report, default=float)}; {loop_ms:.1f} ms of the wall inside "
+        f"the loop stage ({100 * loop_ms / (1e3 * wall):.1f}%)",
+        flush=True,
+    )
+    if "gba" not in report:
+        _fail(f"the global BA of the closure was not merged: {report}")
     store = system.tracker.local_mapper.kf_store
-    state_tensors = list(system.tracker._dstate) + list(system.tracker._block) + [store.packs, store.descs]
+    state_tensors = (list(system.tracker._dstate) + list(system.tracker._block) + [store.packs, store.descs]
+                     + list(closer._tables))
     if any(t.device.type != "cuda" for t in state_tensors):
         _fail("a tracker or mapper state tensor is off the CUDA device")
     if stats["keyframes"] <= 12 or mapper["ba_applied"] < 1 or mapper["triangulated"] < 1:

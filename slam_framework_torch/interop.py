@@ -1,8 +1,9 @@
 """Carry the reference package's state into the port's tensors.
 
 The JAX package's `FrameData`, `DeviceTrackState`, `PointBlock`, `BAProblem`,
-`KFBlock`, `DeviceKFStore` and `MapArena` are handed over as numpy arrays (any object whose fields have the same names,
-e.g. the JAX NamedTuples after `np.asarray`). Descriptors, uint32 there, become
+`KFBlock`, `DeviceKFStore`, `Vocabulary`, `PoseGraphProblem`, `GlobalBAProblem`
+and `MapArena` are handed over as numpy arrays (any object whose fields have
+the same names, e.g. the JAX NamedTuples after `np.asarray`). Descriptors, uint32 there, become
 int32 tensors with the same bits. This module never imports the reference.
 """
 
@@ -14,9 +15,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from slam_framework_torch.bow.vocabulary import Vocabulary
 from slam_framework_torch.config import CapacityConfig
 from slam_framework_torch.map.arena import MapArena
+from slam_framework_torch.optim.global_ba import GlobalBAProblem
 from slam_framework_torch.optim.local_ba import BAProblem
+from slam_framework_torch.optim.pose_graph import PoseGraphProblem
 from slam_framework_torch.pipeline.frame import FrameData
 from slam_framework_torch.pipeline.kf_store import DeviceKFStore
 from slam_framework_torch.pipeline.mapping_ops import KFBlock
@@ -50,6 +54,19 @@ def point_block(src, device=None) -> PointBlock:
 
 def ba_problem(src, device=None) -> BAProblem:
     return _named(BAProblem, src, device)
+
+
+def pose_graph_problem(src, device=None) -> PoseGraphProblem:
+    return _named(PoseGraphProblem, src, device)
+
+
+def global_ba_problem(src, device=None) -> GlobalBAProblem:
+    return _named(GlobalBAProblem, src, device)
+
+
+def vocabulary(src) -> Vocabulary:
+    """A host copy of a reference vocabulary (its tables are numpy arrays)."""
+    return Vocabulary(**{f.name: copy.deepcopy(getattr(src, f.name)) for f in dataclasses.fields(Vocabulary)})
 
 
 def kf_block(src, device=None) -> KFBlock:

@@ -80,6 +80,7 @@ class LocalMapper:
         self._tri_pending = []   # [(kf, nbr_ids, device result)] awaiting apply
         self._fuse_pending = []  # [(nbr_ids, pids_pad, device result)] awaiting apply
         self.ba_aborts = 0  # BA results discarded (newer keyframe, or divergence)
+        self.n_finalized = 0  # finalize() calls: a caller can tell that its prefetched results are spent
         # running totals over the mapper's life, for run statistics
         self.totals = {"ba_applied": 0, "triangulated": 0, "fused_obs": 0, "merged": 0,
                        "culled_keyframes": 0}
@@ -171,6 +172,7 @@ class LocalMapper:
         """Drain all in-flight device work into the arena (pending fuse +
         triangulation + local BA). Must run before consumers that need settled
         map state."""
+        self.n_finalized += 1
         self.apply_pending_fuse()
         self.apply_pending_triangulation()
         self.flush_ba()

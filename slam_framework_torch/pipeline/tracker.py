@@ -12,9 +12,11 @@ keyframe decisions `sync_every` frames behind, as the reference does.
 
 Every keyframe goes through the local mapper (pipeline/local_mapper.py: point
 culling, multi-view triangulation, neighbour fusion, keyframe culling, local
-BA) before the block is rebuilt, and `flush()` finalizes it. Not ported yet:
-place recognition, relocalisation and loop closing. Tracking loss therefore
-behaves like the reference with no relocalizer: every later frame is lost.
+BA) before the block is rebuilt, and `flush()` finalizes it. Just before
+that, `on_new_keyframe` (set by SlamSystem) hands the keyframe to place
+recognition and loop closing. Not ported yet: relocalisation. Tracking loss
+therefore behaves like the reference with no relocalizer: every later frame
+is lost.
 
 Chunks run serially on the host, in the order of the reference's pipeline
 depth 1: run the chunk; read its results back together with the mapper's
@@ -113,6 +115,7 @@ class StereoTracker:
         self.records: list[FrameRecord] = []
         self.metrics = MetricsLog()
         self.timers = StageTimers()
+        self.on_new_keyframe = None  # hook: called with the keyframe's id after insertion
         self.local_mapper = LocalMapper(cfg, self.arena, self.K, timers=self.timers, device=self.device)
         self._dstate: Optional[DeviceTrackState] = None
         self._block: Optional[track_ops.PointBlock] = None
@@ -426,6 +429,8 @@ class StereoTracker:
         self.ref_kf = kf
         self.ref_kf_tracked = int(has_depth.sum())
         self.last_kf_frame_id = self.frame_id
+        if self.on_new_keyframe:
+            self.on_new_keyframe(kf)
         return True
 
     def _create_points_from_stereo(self, kf, feat_idx, pose, xy, depth, octave, desc) -> np.ndarray:
@@ -506,6 +511,15 @@ class StereoTracker:
         self.ref_kf = kf
         self.ref_kf_tracked = int((point_ids >= 0).sum())
         self.last_kf_frame_id = fid
+        if self.on_new_keyframe:
+            settled = self.local_mapper.n_finalized
+            with self.timers.time("loop"), trace_span("tracker/loop"):
+                self.on_new_keyframe(kf)
+            if self.local_mapper.n_finalized != settled:
+                # the hook settled the mapper (a loop candidate passed, or a
+                # global BA was merged): its in-flight results are applied, and
+                # the drain's copies belong to no pending entry any more
+                ba_data = tri_data = fuse_data = None
         with self.timers.time("keyframe"), trace_span("tracker/keyframe"):
             self.local_mapper.process_keyframe(
                 kf, prefetched_ba=ba_data, prefetched_tri=tri_data, prefetched_fuse=fuse_data)

@@ -1,10 +1,18 @@
-"""SlamSystem façade for the stereo tracking + local mapping slice of the port.
+"""SlamSystem façade of the port: stereo tracking, local mapping, place
+recognition and loop closing.
 
-Port of slam_framework_tpu/system.py: construction from a config, the stereo
-per-frame entry points (TrackStereo, slam_system.cpp:89-129), the young-map
-reset, shutdown statistics and the KITTI trajectory export. The tracker owns
-the local mapper (pipeline/local_mapper.py). Place recognition and loop
-closing are not ported yet, so there is no vocabulary and no loop closer.
+Port of slam_framework_tpu/system.py: construction from a config (+ vocabulary),
+the stereo per-frame entry points (TrackStereo, slam_system.cpp:89-129), the
+young-map reset, shutdown statistics and the KITTI trajectory export. The
+tracker owns the local mapper (pipeline/local_mapper.py); every new keyframe is
+handed to the loop closer (pipeline/loop_closer.py) before the mapper processes
+it.
+
+The vocabulary is `cfg.vocabulary_path` or the shipped asset; when no file
+loads, one is trained online from the first keyframes' descriptors, and place
+recognition starts once it exists.
+Relocalization is not ported yet: no `Relocalizer` is built from the loop
+closer, and a lost frame stays lost.
 """
 
 from __future__ import annotations
@@ -16,22 +24,28 @@ import numpy as np
 import torch
 
 from slam_framework_torch import resolve_device
+from slam_framework_torch.bow import vocabulary as bow_vocab
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.io import trajectory
 from slam_framework_torch.map.arena import MapArena
+from slam_framework_torch.pipeline.loop_closer import LoopCloser
 from slam_framework_torch.pipeline.tracker import StereoTracker, TrackingState
 
 
 class SlamSystem:
     """User-facing engine. One instance per camera stream, on one device."""
 
+    VOCAB_TRAIN_AT_KFS = 6       # train the online vocabulary once this many keyframes exist
     RESET_IF_LOST_BELOW_KFS = 5  # tracker.cpp:613-620
 
     def __init__(self, cfg: SlamConfig, sensor: Optional[str] = None, sync_every: int = 4,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, place_recognition: bool = True):
         """device: where images, tracking state and the point block live.
         None means the first CUDA device and raises when there is none; the
-        CPU is taken only when the caller passes it."""
+        CPU is taken only when the caller passes it.
+
+        place_recognition=False runs tracking and mapping alone: no
+        vocabulary is loaded or trained, and there is no loop closer."""
         if sensor is not None and sensor != cfg.sensor:
             cfg = dataclasses.replace(cfg, sensor=sensor)
         if cfg.sensor != "stereo":
@@ -39,6 +53,13 @@ class SlamSystem:
         self.cfg = cfg
         self.sync_every = sync_every
         self.device = resolve_device(device)
+        self.place_recognition = place_recognition
+        self.vocab: Optional[bow_vocab.Vocabulary] = None
+        if place_recognition:
+            try:
+                self.vocab = bow_vocab.load(cfg.vocabulary_path or bow_vocab.SHIPPED_VOCABULARY)
+            except (OSError, ValueError, KeyError):
+                self.vocab = None  # fall back to online training
         self.n_resets = 0
         self._build()
 
@@ -46,6 +67,11 @@ class SlamSystem:
         cfg = self.cfg
         self.arena = MapArena.create(cfg.capacity, cfg.capacity.max_features)
         self.tracker = StereoTracker(cfg, self.arena, sync_every=self.sync_every, device=self.device)
+        self.loop_closer: Optional[LoopCloser] = None
+        if self.place_recognition:
+            if self.vocab is not None:
+                self._activate_place_recognition()
+            self.tracker.on_new_keyframe = self._on_new_keyframe
 
     def reset(self) -> None:
         """Tracker::Reset (tracker.cpp:225-246): clear map and state."""
@@ -53,17 +79,22 @@ class SlamSystem:
         self._build()
 
     def shutdown(self) -> dict:
-        """Drain buffered frames and the mapper's in-flight work; return run
-        statistics (Shutdown :226-247)."""
-        self.tracker.flush()
+        """Drain buffered frames, the mapper's in-flight work, the deferred loop
+        detection and a pending global BA; return run statistics (Shutdown
+        :226-247)."""
+        self._settle()
         mapper = self.tracker.local_mapper
+        caps = dict(mapper.cap_clips)
+        if self.loop_closer is not None:
+            caps.update(self.loop_closer.cap_clips)
         return {
             "frames": len(self.tracker.records),
             "keyframes": self.arena.n_valid_kfs,
             "map_points": self.arena.n_valid_pts,
+            "loops_closed": self.loop_closer.n_loops_closed if self.loop_closer else 0,
             "resets": self.n_resets,
             "ba_aborts": mapper.ba_aborts,
-            "cap_clips": dict(mapper.cap_clips),
+            "cap_clips": caps,
             "mapper": dict(mapper.totals),
         }
 
@@ -88,8 +119,116 @@ class SlamSystem:
         ):
             self.reset()
 
-    def frame_poses(self) -> np.ndarray:
+    # ------------------------------------------------------------------ stage wiring
+
+    def _activate_place_recognition(self) -> None:
+        mapper = self.tracker.local_mapper
+        self.loop_closer = LoopCloser(self.cfg, self.arena, self.tracker.K, self.vocab, kf_store=mapper.kf_store)
+
+        def _forget(k: int) -> None:
+            self.loop_closer.db.erase(k)
+            self.loop_closer.bow_frames.pop(k, None)
+
+        mapper.on_erase_keyframe = _forget
+
+    def _on_new_keyframe(self, kf: int) -> None:
+        # 1. online vocabulary training once the map has enough texture
+        if self.vocab is None and self.arena.n_valid_kfs >= self.VOCAB_TRAIN_AT_KFS:
+            self._train_vocabulary()
+        closer = self.loop_closer
+        if closer is None:
+            return
+        # catch up the BoW database (the backfill after online training); skip
+        # the keyframe whose BoW transform is still in flight on the device:
+        # the deferred harvest registers it at the next step
+        pending = closer._bow_pending
+        pending_kf = pending[0] if pending is not None else None
+        for k in range(self.arena.num_kfs):
+            if k == kf or k == pending_kf:
+                continue
+            if self.arena.kf_valid[k] and k not in closer.bow_frames:
+                bow = closer.compute_bow(k)
+                closer.bow_frames[k] = bow
+                closer.db.add(k, bow)
+        # 2. merge the global BA of a PREVIOUS loop closure (it needs settled
+        # poses: the mapper is finalized only when one is in flight), then run
+        # loop detection for this keyframe. Detection is appearance-only; the
+        # mapper is drained at the moment a consistent candidate forces a Sim3
+        # correction (the pre_close hook), not at every keyframe.
+        if closer.has_pending_gba():
+            self.tracker.local_mapper.finalize()
+            pre = self.arena.kf_pose[kf].copy()
+            if closer.apply_pending_gba():
+                self._apply_world_correction(pre, self.arena.kf_pose[kf])
+        pre_box = {}
+
+        def _pre_close():
+            self.tracker.local_mapper.finalize()
+            pre_box["pose"] = self.arena.kf_pose[kf].copy()
+
+        if closer.process_keyframe(kf, pre_close=_pre_close):
+            self._apply_world_correction(pre_box["pose"], self.arena.kf_pose[kf])
+
+    def _train_vocabulary(self) -> None:
+        """Online vocabulary: k=10, depth=4 (10k words) with IDF weights
+        refitted from the existing keyframes. A vocabulary file takes
+        precedence when one is configured or shipped."""
+        arena = self.arena
+        descs = arena.kf_desc[: arena.num_kfs][arena.kf_feat_valid[: arena.num_kfs]]
+        if len(descs) < 500:
+            return
+        sample = descs[np.random.default_rng(0).permutation(len(descs))[:30000]]
+        self.vocab = bow_vocab.train(sample, k=10, depth=4, seed=0)
+        word_lists = []
+        for k in range(arena.num_kfs):
+            if not arena.kf_valid[k]:
+                continue
+            d = arena.kf_desc[k][arena.kf_feat_valid[k]]
+            word_lists.append(bow_vocab.transform_host(self.vocab, d))
+        bow_vocab.refit_idf(self.vocab, word_lists)
+        self._activate_place_recognition()
+
+    def _apply_world_correction(self, kf_pose_pre: np.ndarray, kf_pose_post: np.ndarray) -> None:
+        """After a loop closure or a global-BA merge rewrote the map under the
+        tracker, move the device-resident pose into the corrected world:
+        T' = T @ (T_pre^-1 T_post)."""
+        st = self.tracker._dstate
+        if st is None:
+            return
+        corr = np.linalg.inv(kf_pose_pre.astype(np.float64)) @ kf_pose_post.astype(np.float64)
+        pose = (st.pose.cpu().numpy().astype(np.float64) @ corr).astype(np.float32)
+        self.tracker._dstate = st._replace(pose=torch.from_numpy(pose).to(st.pose.device))
+
+    def _settle(self) -> None:
+        """Drain ALL in-flight work (buffered frames, the mapper's BA /
+        triangulation / fusion, the deferred loop detection, the global BA) so
+        that exported state is final."""
         self.tracker.flush()
+        if self.loop_closer is not None:
+            self._finish_loop_stage()
+            self.loop_closer.apply_pending_gba()
+
+    def _finish_loop_stage(self) -> bool:
+        """Run the deferred (one-keyframe-late) loop detection for the last
+        keyframe and apply the world correction if it closes."""
+        arena = self.arena
+        valid = np.nonzero(arena.kf_valid[: arena.num_kfs])[0]
+        if len(valid) == 0:
+            return bool(self.loop_closer.flush())
+        anchor = int(valid[-1])
+        pre_box = {}
+
+        def _pre_close():
+            self.tracker.local_mapper.finalize()
+            pre_box["pose"] = arena.kf_pose[anchor].copy()
+
+        closed = self.loop_closer.flush(pre_close=_pre_close)
+        if closed:
+            self._apply_world_correction(pre_box["pose"], arena.kf_pose[anchor])
+        return closed
+
+    def frame_poses(self) -> np.ndarray:
+        self._settle()
         return self.tracker.trajectory_poses()
 
     def save_trajectory_kitti(self, path: str) -> None:

@@ -1,11 +1,14 @@
-"""A seeded synthetic local-BA problem at chosen capacities.
+"""Seeded synthetic BA problems at chosen capacities: local and global.
 
 Cameras on a line looking at a point cloud, the first camera fixed at its true
 pose, the others and the points perturbed; every point is seen by
 `obs_per_point` cameras drawn at random, with pixel noise, in stereo. The
 construction follows the reference package's own BA test scene, sized up to the
 default capacities (32 cameras, 4096 points, 16384 observation slots, 8 per
-point) and vectorised.
+point) and vectorised. `build_global_problem` lays the same scene out as a
+global-BA problem (it adds the per-camera observation slots) at the size of
+the bench world's map when its loop closes: 80 keyframes and 17,665 points in
+128 camera, 32,768 point and 131,072 observation slots.
 """
 
 from __future__ import annotations
@@ -88,3 +91,23 @@ def build_problem(seed: int = 0, n_cams: int = 24, n_pts: int = 4000, obs_per_po
         obs_inv_sigma2=np.ones(M, np.float32), obs_mask=obs_mask, pt_obs_slots=pt_slots,
     )
     return SyntheticBA(arrays=arrays, poses_true=poses_true.astype(np.float32), pts_true=pts.astype(np.float32))
+
+
+def build_global_problem(seed: int = 0, n_cams: int = 80, n_pts: int = 17665, obs_per_point: int = 6,
+                         C: int = 128, P: int = 32768, M: int = 131072, O: int = 16, **kw) -> SyntheticBA:
+    """The fields of optim.global_ba.GlobalBAProblem: `build_problem`'s scene plus
+    `cam_obs_slots` (C, Oc), each camera's observations in ascending order, Oc the
+    next power of two above the fullest camera (2048 at the default size)."""
+    syn = build_problem(seed, n_cams=n_cams, n_pts=n_pts, obs_per_point=obs_per_point, C=C, P=P, M=M, O=O, **kw)
+    a = syn.arrays
+    m = int(a["obs_mask"].sum())
+    order = np.argsort(a["obs_cam"][:m], kind="stable")
+    counts = np.bincount(a["obs_cam"][:m], minlength=C)
+    Oc = 1
+    while Oc < counts.max():
+        Oc <<= 1
+    cam_slots = np.full((C, Oc), -1, np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for c in range(n_cams):
+        cam_slots[c, : counts[c]] = order[starts[c]: starts[c + 1]]
+    return syn._replace(arrays={**a, "cam_obs_slots": cam_slots})

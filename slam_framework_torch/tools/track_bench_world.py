@@ -1,13 +1,16 @@
 """Track the bench world with the port's stereo SlamSystem and print what came out.
 
-    python -m slam_framework_torch.tools.track_bench_world --frames 329 --device cpu
+    python -m slam_framework_torch.tools.track_bench_world --frames 330 --device cpu
 
 The world is bench.py's (seed 3, speed 1.0, yaw 2*pi/300, 22,000 landmarks) at
 `SlamConfig()` defaults (1241x376, 2000 features, 8 levels, default
-capacities). Prints one JSON line: frames/s on the host clock, ATE against
-ground truth (SE3-aligned), lost frames, keyframes, map points, the mapper's
-totals and the stage timers. `chip_smoke.py`'s ATE bound is twice the ATE this
-prints on the CPU over the same frames. `--threads` caps torch's CPU threads.
+capacities). The whole system runs: tracker, local mapper, place recognition
+and loop closer (`--no-loop-closer` leaves the last two out). Prints one JSON
+line: frames/s on the host clock, ATE against ground truth (SE3-aligned), lost
+frames, keyframes, map points, loops closed, the loop closer's report and its
+number of Sim3 attempts, the mapper's totals and the stage timers.
+`chip_smoke.py`'s ATE bound is twice the ATE this prints on the CPU over the
+same frames. `--threads` caps torch's CPU threads.
 """
 
 from __future__ import annotations
@@ -31,19 +34,34 @@ def bench_world(cfg: SlamConfig, num_frames: int = 330):
     )
 
 
+def loop_summary(system: SlamSystem) -> dict:
+    """What the loop stage did: where it closed, its last report, its attempts."""
+    closer = system.loop_closer
+    if closer is None:
+        return {"closed_at_kf": None, "loop_edges": [], "n_sim3_attempts": 0, "last_report": {}}
+    return {
+        "closed_at_kf": int(closer.last_loop_kf) if closer.n_loops_closed else None,
+        "loop_edges": [(int(a), int(b)) for a, b, _ in closer.loop_edges],
+        "n_sim3_attempts": closer.n_sim3_attempts,
+        "last_report": closer.last_report,
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=329)
+    ap.add_argument("--frames", type=int, default=330)
     ap.add_argument("--sync", type=int, default=8)
     ap.add_argument("--device", default=None, help="cpu, cuda, cuda:1 ... (default: the first CUDA device)")
     ap.add_argument("--threads", type=int, default=0)
+    ap.add_argument("--no-loop-closer", action="store_true", help="tracking and mapping alone")
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
 
     cfg = SlamConfig()
-    world = bench_world(cfg)
-    system = SlamSystem(cfg, sensor="stereo", sync_every=args.sync, device=args.device)
+    world = bench_world(cfg, num_frames=max(args.frames, 330))
+    system = SlamSystem(cfg, sensor="stereo", sync_every=args.sync, device=args.device,
+                        place_recognition=not args.no_loop_closer)
     t0 = time.perf_counter()
     for f in range(args.frames):
         system.track_stereo(*world.stereo_pair(f), world.timestamps[f])
@@ -58,8 +76,9 @@ def main() -> None:
         "lost": sum(1 for r in records if r.lost),
         "first_lost_frame": next((r.frame_id for r in records if r.lost), None),
         "stats": stats,
+        **loop_summary(system),
         "timers": system.tracker.timers.summary(),
-    }), flush=True)
+    }, default=float), flush=True)
 
 
 if __name__ == "__main__":

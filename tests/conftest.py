@@ -32,6 +32,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (skips with a reason where there is none)"
     )
+    config.addinivalue_line("markers", "slow: an end-to-end run of many minutes, run by hand")
 
 
 @pytest.fixture(autouse=True, scope="module")

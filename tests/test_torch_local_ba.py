@@ -37,6 +37,17 @@ from slam_framework_torch.optim import reproj as treproj
 from slam_framework_torch.tools import ba_synthetic
 from test_local_ba import K as JK, build_problem
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once; torch's default of one
+    thread per core in each of them oversubscribes the machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TK = TIntrinsics(*JK)
 
 SCENES = {

@@ -34,6 +34,17 @@ from slam_framework_torch.matching import hamming as tham, matcher as tm
 from slam_framework_torch.pipeline import mapping_ops as tmap, track_ops as ttrack
 from slam_framework_torch.pipeline.local_mapper import LocalMapper as TMapper, mapper_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once; torch's default of one
+    thread per core in each of them oversubscribes the machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 FX = FY = 300.0
 CX, CY = 160.0, 120.0
 KVALS = dict(fx=FX, fy=FY, cx=CX, cy=CY, bf=60.0)

@@ -22,6 +22,16 @@ differ by 8-14 cm, and by 11 cm with the mapper STUBBED in both as well, because
 a few differing BRIEF bits change which features the pose optimisation keeps;
 each tracker is 3-5 cm RMSE from the ground truth itself. The median carries
 the comparison.
+
+The port's system runs with place recognition on (the shipped vocabulary), the
+reference tracker without: over these few frames no loop can close, so the
+comparisons above hold unchanged, and the mapper-on run also shows the wiring:
+one database entry per live keyframe, `loops_closed == 0`, the same keyframes
+and ATE as a run of the port with place recognition off. The two packages'
+descriptors differ in a few bits on ~4% of the features, so a keyframe's word
+list is held against the reference's by `BowFrame.score >= 0.8` (1.0 = equal),
+not for equality. A full loop (the 270-frame circle of the reference's system
+test) is marked slow.
 """
 
 import numpy as np
@@ -37,6 +47,17 @@ from slam_framework_torch.io import synthetic, trajectory
 from slam_framework_torch.pipeline.local_mapper import LocalMapper as TLocalMapper
 from slam_framework_torch.system import SlamSystem
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once; torch's default of one
+    thread per core in each of them oversubscribes the machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 CAM = dict(fx=400.0, fy=400.0, cx=320.0, cy=120.0, width=640, height=240, fps=10.0, bf=400.0 * 0.54)
 CAP = dict(max_keyframes=64, max_map_points=65536, max_features=1024, local_window_points=8192)
 BA_CAP = dict(ba_cams=16, ba_points=512, ba_obs=2048)
@@ -44,7 +65,7 @@ N = 16
 N_MAPPER = 24
 
 
-def _track_both(n_frames, cap, stub_mapper):
+def _track_both(n_frames, cap, stub_mapper, reference=True, **system_kw):
     """The same n_frames pairs through the port's SlamSystem and the reference tracker."""
     tcfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), orb=tconf.OrbConfig(num_features=800, num_levels=4),
                             capacity=tconf.CapacityConfig(**cap))
@@ -56,15 +77,16 @@ def _track_both(n_frames, cap, stub_mapper):
             for cls in (LocalMapper, TLocalMapper):
                 mp.setattr(cls, "process_keyframe", lambda self, *a, **k: None)
                 mp.setattr(cls, "note_new_points", lambda self, *a, **k: None)
-        system = SlamSystem(tcfg, sync_every=4, device=torch.device("cpu"))
+        system = SlamSystem(tcfg, sync_every=4, device=torch.device("cpu"), **system_kw)
         for f in range(n_frames):
             system.track_stereo(*pairs[f], world.timestamps[f])
         stats = system.shutdown()
-        jt = JTracker(jcfg, sync_every=4)
-        for f in range(n_frames):
+        jt = JTracker(jcfg, sync_every=4) if reference else None
+        for f in range(n_frames if reference else 0):
             jt.track(*pairs[f], world.timestamps[f])
-        jt.flush()
-    return dict(world=world, system=system, stats=stats, jt=jt)
+        if reference:
+            jt.flush()
+    return dict(world=world, system=system, stats=stats, jt=jt, jcfg=jcfg)
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +128,8 @@ def test_trajectory_follows_ground_truth_and_exports(runs, tmp_path):
     stats = runs["stats"]
     assert {k: stats[k] for k in ("frames", "keyframes", "map_points", "resets")} == {
         "frames": N, "keyframes": system.arena.n_valid_kfs, "map_points": system.arena.n_valid_pts, "resets": 0}
-    assert set(stats) == {"frames", "keyframes", "map_points", "resets", "ba_aborts", "cap_clips", "mapper"}
+    assert set(stats) == {"frames", "keyframes", "map_points", "loops_closed", "resets", "ba_aborts", "cap_clips",
+                          "mapper"}
 
 
 def test_mapper_on_same_keyframes_and_no_lost_frames(mapper_runs):
@@ -140,3 +163,93 @@ def test_mapper_on_per_frame_translation_close_to_reference(mapper_runs):
     ate_t = trajectory.ate_rmse(got, world.poses[:N_MAPPER], align="se3")
     ate_j = trajectory.ate_rmse(want, world.poses[:N_MAPPER], align="se3")
     assert abs(ate_t - ate_j) < 0.01 and max(ate_t, ate_j) < 0.09, (ate_t, ate_j)
+
+
+def test_place_recognition_wired_one_database_entry_per_live_keyframe(mapper_runs):
+    from slam_framework_tpu.bow import vocabulary as jvoc
+    from slam_framework_tpu.pipeline.loop_closer import LoopCloser as JLoopCloser
+    from slam_framework_torch.bow import vocabulary as tvoc
+
+    system, jt, stats = mapper_runs["system"], mapper_runs["jt"], mapper_runs["stats"]
+    closer, arena = system.loop_closer, system.arena
+    assert closer is not None and system.vocab.num_nodes == 110343 and stats["loops_closed"] == 0
+    assert closer.kf_store is system.tracker.local_mapper.kf_store
+    live = set(np.nonzero(arena.kf_valid[: arena.num_kfs])[0].tolist())
+    assert set(closer.db.frames) == live == set(closer.bow_frames) and len(live) >= 5
+    assert closer.n_sim3_attempts == 0 and not closer.has_pending_gba() and closer._bow_pending is None
+    # the same keyframes' words in the reference, from its own descriptors
+    jcloser = JLoopCloser(mapper_runs["jcfg"], jt.arena, jt.K, jvoc.load(tvoc.SHIPPED_VOCABULARY))
+    scores = [closer.bow_frames[k].score(jcloser.compute_bow(k)) for k in sorted(live)]
+    assert min(scores) >= 0.8, scores
+    # a culled keyframe leaves the database through the mapper's hook
+    k = max(live)
+    bow = closer.bow_frames[k]
+    system.tracker.local_mapper.on_erase_keyframe(k)
+    assert k not in closer.db.frames and k not in closer.bow_frames
+    assert all(k not in kfs for kfs in closer.db.index.values())
+    closer.bow_frames[k] = bow
+    closer.db.add(k, bow)
+
+
+def test_place_recognition_leaves_keyframes_and_ate_unchanged(mapper_runs):
+    """The same frames through the port with place recognition off: while no loop closes,
+    the stage only reads the map."""
+    plain = _track_both(N_MAPPER, {**CAP, **BA_CAP}, stub_mapper=False, reference=False, place_recognition=False)
+    system, world = mapper_runs["system"], mapper_runs["world"]
+    assert plain["system"].loop_closer is None and plain["system"].vocab is None
+    assert plain["stats"]["loops_closed"] == 0
+    a, b = system.arena, plain["system"].arena
+    np.testing.assert_array_equal(a.kf_frame_id[: a.num_kfs], b.kf_frame_id[: b.num_kfs])
+    np.testing.assert_array_equal(a.kf_valid[: a.num_kfs], b.kf_valid[: b.num_kfs])
+    assert mapper_runs["stats"]["map_points"] == plain["stats"]["map_points"]
+    np.testing.assert_array_equal(system.frame_poses(), plain["system"].frame_poses())
+    assert trajectory.ate_rmse(system.frame_poses(), world.poses[:N_MAPPER], align="se3") == \
+        trajectory.ate_rmse(plain["system"].frame_poses(), world.poses[:N_MAPPER], align="se3")
+
+
+def test_online_vocabulary_is_trained_when_no_file_loads():
+    import dataclasses
+
+    tcfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), orb=tconf.OrbConfig(num_features=800, num_levels=4),
+                            capacity=tconf.CapacityConfig(**{**CAP, **BA_CAP}), vocabulary_path="/nonexistent/voc.npz")
+    system = SlamSystem(tcfg, sync_every=4, device=torch.device("cpu"))
+    assert system.vocab is None and system.loop_closer is None
+    world = synthetic.make_world(num_frames=N_MAPPER + 14, cam=tcfg.camera, seed=1, speed=0.8, yaw_rate=0.004)
+    system.VOCAB_TRAIN_AT_KFS = 3
+    for f in range(12):
+        system.track_stereo(*world.stereo_pair(f), world.timestamps[f])
+    stats = system.shutdown()
+    assert system.vocab is not None and (system.vocab.k, system.vocab.depth) == (10, 4)
+    assert len(np.unique(system.vocab.node_weight)) > 2  # IDF refitted
+    live = set(np.nonzero(system.arena.kf_valid[: system.arena.num_kfs])[0].tolist())
+    assert set(system.loop_closer.db.frames) == live and len(live) >= 3 and stats["loops_closed"] == 0
+    assert dataclasses.is_dataclass(system.vocab)
+
+
+@pytest.mark.slow
+def test_full_circle_closes_loop_and_reduces_ate():
+    """The reference's full-system loop test (tests/test_system.py, a 200-frame lap + 70 revisit
+    frames at 640x240) through the port on the CPU; about ten minutes."""
+    n_frames = 270
+    tcfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), orb=tconf.OrbConfig(num_features=800, num_levels=4),
+                            capacity=tconf.CapacityConfig(**CAP))
+    world = synthetic.make_world(num_frames=n_frames, cam=tcfg.camera, seed=4, speed=1.0,
+                                 yaw_rate=2.0 * np.pi / 200.0, num_landmarks=2500, corridor_half_width=7.0)
+    system = SlamSystem(tcfg, device=torch.device("cpu"))
+    snap_ate, snap_n = None, 0
+    for f in range(n_frames):
+        system.track_stereo(*world.stereo_pair(f), world.timestamps[f])
+        if system.loop_closer.n_loops_closed == 0 and f >= 100 and f % 20 == 0:
+            est = system.frame_poses()
+            gt = world.poses[[r.frame_id for r in system.tracker.records]]
+            snap_ate, snap_n = trajectory.ate_rmse(est, gt, align="se3"), len(est)
+    stats = system.shutdown()
+    print(stats, system.loop_closer.last_report, system.loop_closer.n_sim3_attempts, snap_ate)
+    assert stats["loops_closed"] >= 1, stats
+    assert sum(1 for r in system.tracker.records if r.lost) <= 3
+    est = system.frame_poses()
+    gt = world.poses[[r.frame_id for r in system.tracker.records]]
+    ate_final = trajectory.ate_rmse(est, gt, align="se3")
+    ate_prefix = trajectory.ate_rmse(est[:snap_n], gt[:snap_n], align="se3")
+    print("ATE of the prefix before / after the closure:", snap_ate, ate_prefix, "final:", ate_final)
+    assert snap_ate is not None and ate_prefix < snap_ate and ate_final < 1.0

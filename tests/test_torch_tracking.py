@@ -27,6 +27,17 @@ from slam_framework_torch import config as tconf, interop
 from slam_framework_torch.io import synthetic as tsyn
 from slam_framework_torch.pipeline.tracker import StereoTracker as TTracker
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once; torch's default of one
+    thread per core in each of them oversubscribes the machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 CAM = dict(fx=400.0, fy=400.0, cx=320.0, cy=120.0, width=640, height=240, fps=10.0, bf=400.0 * 0.54)
 CAP = dict(max_keyframes=64, max_map_points=65536, max_features=1024, local_window_points=8192)
 
