@@ -39,6 +39,13 @@ Phases (any failure exits non-zero before the final line):
      17,665 points, 105,990 observations in 128 / 32,768 / 131,072 slots;
      camera centres within 2 mm, total chi2 within 0.1%), plus its device
      time replayed as one CUDA graph if it captures;
+  5b. relocalization programs on the card against the CPU (plain PyTorch, as
+     they are XLA programs in the reference): a synthetic matched set in the
+     2048 frame slots the relocalizer hands its solvers (300 matches, 30% gross
+     outliers, stereo depth on 90% of them, 256 hypotheses, the same index sets
+     on both sides) through `solve_pnp3d_ransac` and `solve_pnp_ransac`: R within
+     1e-4 (the 2-D solver's DLT: 5e-4), t within 1e-3 m, inlier flags equal on
+     all but 2, two card runs bit-equal, ms and kernels per call;
   6. main path: the bench world (bench.py's parameters) at 1241x376, all 330
      stereo pairs (the circle meets itself) staged on the card, then a stereo
      SlamSystem (SlamConfig(), sync_every=8, the shipped vocabulary: tracker,
@@ -53,13 +60,34 @@ Phases (any failure exits non-zero before the final line):
      frame), peak device memory and the stage timers. Fails on a lost frame,
      a reset, no closed loop, a global BA not merged, a launch count other
      than one per frame, a state tensor off the card, ATE above its bound, 12
-     keyframes or fewer, no BA applied or no triangulated point.
+     keyframes or fewer, no BA applied or no triangulated point. The system's
+     map is then saved (`save_map`) under slam_framework_torch/build/;
+  7. blackout run: the same 330 pairs with frames 110-112 replaced by a uniform
+     gray (90) pair on the card, through a fresh SlamSystem. Fails unless
+     tracking is lost at the blackout, a frame after 112 relocalizes (its frame,
+     keyframe, inliers and the attempts are printed), 0 resets, a loop closes
+     with its global BA merged, lost frames are at most the reference's count
+     on the same pixels plus sync_every, the ATE over the tracked frames is at
+     most twice the port's CPU figure, 330 FAST launches and every state tensor
+     on the card. Prints the time per relocalization attempt, the kernels and
+     copies of one attempt, and the stage timers;
+  8. resume run: a fresh SlamSystem loads the saved map (`load_map`), goes into
+     localization mode and is fed bench frames 200-229. Fails unless it is LOST
+     after the load, one of the first three frames relocalizes, at least 25 of
+     the 30 are tracked, the keyframe count is unchanged, every tracked camera
+     centre is within 0.3 m of the truth once the map's world is aligned to the
+     truth's over these frames (SE3, through the saved trajectory's centres of
+     the same frames), and the frames made 30 FAST launches. Prints the file's
+     size, the save and load times, and each frame's distance to the saved
+     trajectory (between keyframes the saved records carry the first run's own
+     tracking error, up to ~0.3 m; at its keyframes they agree within 1 cm).
 Then one JSON line describing the kernel, and the device line last.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -84,6 +112,34 @@ POSE_GRAPH_CENTRE_TOL_M = 1e-4
 GBA_CENTRE_TOL_M = 2e-3
 GBA_CHI2_REL_TOL = 1e-3
 BOW_FRAMES = (0, 150, 300)
+# relocalization programs, card against CPU. The 2-D solver's pose comes from a
+# weighted 12x12 DLT whose smallest fp32 eigenvector cuSOLVER and LAPACK put
+# 1.17e-4 apart in R with identical inlier sets (the pose itself is 3.4e-4 from
+# the truth; first run on an H100): its R is held to 5e-4, the 3-D solver's to 1e-4.
+PNP_R_TOL = {"solve_pnp3d_ransac": 1e-4, "solve_pnp_ransac": 5e-4}
+PNP_T_TOL_M = 1e-3
+PNP_INLIER_FLIPS_MAX = 2
+# blackout run: frames 110-112 blank. The reference SlamSystem on the same pixels
+# on the CPU loses frames 110-120 (11) and relocalizes at frame 121 against
+# keyframe 26 (`JAX_PLATFORMS=cpu python tools/ref_reloc_bench_world.py`).
+BLACKOUT = range(110, 113)
+REF_LOST = 11
+# Twice the port's ATE over the tracked frames of the same run on the CPU
+# (`python -m slam_framework_torch.tools.track_bench_world --frames 330
+# --blackout 110-112 --device cpu`: lost 110-112, relocalized at frame 113
+# against keyframe 26, loop at keyframe 70 against 1, ATE 0.3725 m).
+ATE_BLACKOUT_CPU_M = 0.3725
+ATE_BLACKOUT_BOUND_M = 2 * ATE_BLACKOUT_CPU_M
+# resume run. The bar is the reference test's (tests/test_system.py:139, against
+# the truth). The map's world is aligned to the truth's over the resumed frames
+# through the saved trajectory of the same frames: the map sits ~0.4 m off the
+# truth there, and the saved records between keyframes are no reference for a
+# single frame (0.28-0.30 m from the resumed poses at frames 227-229 on the CPU
+# and on an H100, 0.005 m at the saved keyframes' frames; the resumed poses are
+# within 0.16 m of the truth after the alignment, the saved ones 0.26 m).
+RESUME_FRAMES = range(200, 230)
+RESUME_MIN_TRACKED = 25
+RESUME_CENTRE_TOL_M = 0.3
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
@@ -468,12 +524,241 @@ def _loop_programs(torch, dev, cfg, pairs_np, timing) -> None:
         _fail("optimize_global disagrees between the card and the CPU")
 
 
+def _reloc_problem(K, n_slots: int, n_valid: int = 300, seed: int = 8):
+    """A lost frame's matched set at relocalization size: world points seen from
+    a known pose, pixel noise, 30% gross pixel outliers among the matches,
+    stereo back-projections (depth noise growing as z^2/bf) on 90% of them,
+    masked slots behind."""
+    rng = np.random.default_rng(seed)
+    n = n_valid
+    pts = np.stack([rng.uniform(-15, 15, n), rng.uniform(-3, 3, n), rng.uniform(4, 40, n)], -1)
+    w, t = np.array([0.02, 0.4, -0.01]), np.array([1.5, -0.2, 3.0])
+    th = np.linalg.norm(w)
+    Wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    R = np.eye(3) + np.sin(th) / th * Wx + (1 - np.cos(th)) / th**2 * (Wx @ Wx)
+    Xc = pts @ R.T + t
+    uv = np.stack([K.fx * Xc[:, 0] / Xc[:, 2] + K.cx, K.fy * Xc[:, 1] / Xc[:, 2] + K.cy], -1)
+    uv += rng.normal(0, 0.5, (n, 2))
+    out = rng.choice(n, int(0.3 * n), replace=False)
+    uv[out] += rng.uniform(20, 120, (len(out), 2)) * rng.choice([-1, 1], (len(out), 2))
+    z = Xc[:, 2] + rng.normal(0, 1, n) * 0.05 * Xc[:, 2] ** 2 / K.bf
+    pts_c = np.stack([(uv[:, 0] - K.cx) * z / K.fx, (uv[:, 1] - K.cy) * z / K.fy, z], -1)
+    pad = n_slots - n
+
+    def slots(a):
+        return np.concatenate([a, np.zeros((pad,) + a.shape[1:])]).astype(np.float32)
+
+    inv_s2 = (1.0 / 1.44 ** rng.integers(0, 8, n_slots)).astype(np.float32)
+    mask = np.arange(n_slots) < n
+    mask3 = mask.copy()
+    mask3[rng.choice(n, n // 10, replace=False)] = False  # no stereo depth
+    return slots(pts), slots(pts_c), slots(uv), inv_s2, mask, mask3, R, t
+
+
+def _reloc_programs(torch, dev, cfg, timing) -> None:
+    """Phase 5b: the relocalization solvers on the card against the CPU."""
+    from slam_framework_torch.pipeline.frame import StereoFrontend
+    from slam_framework_torch.solvers import pnp, sim3solver
+
+    cpu = torch.device("cpu")
+    K = StereoFrontend(cfg).K
+    n_slots = cfg.capacity.max_features
+    pts_w, pts_c, uv, inv_s2, mask, mask3, R_true, t_true = _reloc_problem(K, n_slots)
+    gen = torch.Generator().manual_seed(11)
+    sets3 = sim3solver.sample_index_sets(torch.from_numpy(mask3), 256, gen, set_size=3)
+    sets6 = sim3solver.sample_index_sets(torch.from_numpy(mask), 256, gen, set_size=pnp.MIN_SET)
+
+    def on(device, *arrays):
+        return [torch.from_numpy(a).to(device) for a in arrays]
+
+    def run3(device=dev):
+        return pnp.solve_pnp3d_ransac(*on(device, pts_w, pts_c, uv, inv_s2, mask3), K, sets3, min_inliers=6)
+
+    def run2(device=dev):
+        return pnp.solve_pnp_ransac(*on(device, pts_w, uv, inv_s2, mask), K, sets6, min_inliers=10)
+
+    for name, run, n_m in (("solve_pnp3d_ransac", run3, int(mask3.sum())), ("solve_pnp_ransac", run2, int(mask.sum()))):
+        got, want = run(), run(cpu)
+        if not _equal_runs(torch, got, run()):
+            _fail(f"{name}: two runs on the card differ")
+        dR = float((got.pose[:3, :3].cpu() - want.pose[:3, :3]).abs().max())
+        dt = float((got.pose[:3, 3].cpu() - want.pose[:3, 3]).abs().max())
+        flips = int((got.inliers.cpu() != want.inliers).sum())
+        pose = got.pose.cpu().numpy()
+        print(f"{name} card vs cpu ({n_m} matches in {n_slots} slots, 30% outliers, 256 hypotheses, the same index "
+              f"sets): R differs by {dR:.3e} (tolerance {PNP_R_TOL[name]}), t by {dt:.3e} m (tolerance {PNP_T_TOL_M}), "
+              f"{flips} inlier flags differ (at most {PNP_INLIER_FLIPS_MAX}), {int(got.n_inliers)} inliers (cpu "
+              f"{int(want.n_inliers)}), R {float(np.abs(pose[:3, :3] - R_true).max()):.2e} and t "
+              f"{float(np.abs(pose[:3, 3] - t_true).max()):.2e} m from the truth, two card runs bit-equal; "
+              + _timed(torch, timing, "per call", run), flush=True)
+        if not (dR <= PNP_R_TOL[name] and dt <= PNP_T_TOL_M) or flips > PNP_INLIER_FLIPS_MAX or not bool(got.ok):
+            _fail(f"{name} disagrees between the card and the CPU")
+
+
+def _ate_tracked(trajectory, system, world):
+    """ATE over the tracked frames alone (SE3-aligned) and their count."""
+    records = system.tracker.records
+    tracked = [i for i, r in enumerate(records) if not r.lost]
+    est = system.frame_poses()[tracked]
+    gt = world.poses[[records[i].frame_id for i in tracked]]
+    return trajectory.ate_rmse(est, gt, align="se3"), len(tracked)
+
+
+def _state_on_card(system) -> bool:
+    tracker = system.tracker
+    store = tracker.local_mapper.kf_store
+    tensors = list(tracker._dstate) + list(tracker._block) + [store.packs, store.descs]
+    if system.loop_closer is not None:
+        tensors += list(system.loop_closer._tables)
+    return all(t.device.type == "cuda" for t in tensors)
+
+
+def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem) -> dict:
+    """Phase 7: the bench world with frames 110-112 blank, relocalization and the loop."""
+    gray = torch.full_like(pairs[0], 90)
+    feed = [gray if f in BLACKOUT else pairs[f] for f in range(N_FRAMES)]
+    system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
+    reloc = system.tracker.relocalizer
+    tried = {}
+    inner = reloc.try_relocalize
+
+    def recording(fd_host):
+        got = inner(fd_host)
+        steps = [{k: (len(v) if k == "rows" else v) for k, v in step.items()} for step in reloc.last_report]
+        tried.setdefault("reports", []).append((system.tracker.frame_id, steps))
+        if got is not None and "fd" not in tried:
+            tried["fd"] = fd_host
+        return got
+
+    reloc.try_relocalize = recording
+    torch.cuda.synchronize()
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in range(N_FRAMES):
+        system.track_stereo_device(feed[f], world.timestamps[f])
+    system.tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    stats = system.shutdown()
+    records = system.tracker.records
+    lost = [r.frame_id for r in records if r.lost]
+    events = [e for e in system.tracker.metrics.records if e.get("relocalized")]
+    after = [e for e in events if e["frame_id"] > BLACKOUT[-1]]
+    ate, n_tracked = _ate_tracked(trajectory, system, world)
+    closer = system.loop_closer
+    timers = system.tracker.timers.summary()
+    rl = timers.get("relocalize", {"total_ms": float("nan"), "count": 0})
+    print(f"blackout run (frames {BLACKOUT[0]}-{BLACKOUT[-1]} blank): {N_FRAMES} frames in {wall:.3f} s = "
+          f"{N_FRAMES / wall:.3f} frames/s; lost {len(lost)} frames {lost} (reference on the CPU: {REF_LOST}, bound "
+          f"{REF_LOST + SYNC}); relocalized: "
+          + (", ".join(f"frame {e['frame_id']} against keyframe {e['reloc_kf']} with {e['inliers']} inliers"
+                       for e in events) or "never")
+          + f"; {reloc.n_attempts} attempts, {rl['total_ms']:.1f} ms in all = "
+          f"{rl['total_ms'] / max(rl['count'], 1):.1f} ms per attempt (front-end included); resets {stats['resets']}; "
+          f"keyframes {stats['keyframes']}, loops closed {stats['loops_closed']} (edges "
+          f"{[(int(a), int(b)) for a, b, _ in closer.loop_edges]}, {closer.n_sim3_attempts} Sim3 attempts), last "
+          f"report {json.dumps(closer.last_report, default=float)}; ATE over the {n_tracked} tracked frames "
+          f"{ate:.4f} m (bound {ATE_BLACKOUT_BOUND_M} m); fast_nms launches {launches}", flush=True)
+    print(f"blackout run stage timers: {json.dumps(timers)}", flush=True)
+    print("relocalization attempts, per frame and candidate tried (BoW matches and the inliers of the RANSAC, "
+          "the motion-only BA and the guided retry): " + json.dumps(tried.get("reports", [])), flush=True)
+    if not records[BLACKOUT[0]].lost:
+        _fail("tracking was not lost at the blackout")
+    if not after:
+        _fail("no frame after the blackout relocalized")
+    if stats["resets"]:
+        _fail(f"{stats['resets']} resets in the blackout run")
+    if stats["loops_closed"] < 1 or "gba" not in closer.last_report:
+        _fail(f"no loop closed with its global BA merged after the blackout: {closer.last_report}")
+    if len(lost) > REF_LOST + SYNC:
+        _fail(f"{len(lost)} lost frames, more than the reference's {REF_LOST} + {SYNC}")
+    if not ate <= ATE_BLACKOUT_BOUND_M:
+        _fail(f"ATE over the tracked frames {ate} m above the bound {ATE_BLACKOUT_BOUND_M} m")
+    if launches != N_FRAMES:
+        _fail(f"fast_nms launches {launches} != one per frame over {N_FRAMES} frames in the blackout run")
+    if not _state_on_card(system):
+        _fail("a tracker state tensor is off the CUDA device in the blackout run")
+    # one relocalization attempt alone: the first successful lost frame's
+    # features against the final map
+    fd = tried["fd"]
+    kernels, copies = _count_launches(torch, lambda: inner(fd))
+    ms = timing.event_ms(lambda: inner(fd), reps=3)
+    print(f"one relocalization attempt (frame {after[0]['frame_id']}'s features against the final map, front-end "
+          f"excluded): {ms:.2f} ms between events, {kernels} kernels + {copies} copies/memsets", flush=True)
+    return {"launches": launches}
+
+
+def _resume_run(torch, dev, cfg, world, pairs, fast_cuda, trajectory, SlamSystem, path: str, save_s: float) -> dict:
+    """Phase 8: load the saved main-path map into a fresh system, localize."""
+    from slam_framework_torch.pipeline.tracker import TrackingState
+
+    system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
+    t0 = time.perf_counter()
+    system.load_map(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if system.tracking_state != TrackingState.LOST:
+        _fail(f"state {system.tracking_state} after load_map, not LOST")
+    n_saved = len(system.tracker.records)
+    saved = system.tracker.trajectory_poses()  # the saved records in the map's corrected world
+    kfs = system.arena.n_valid_kfs
+    system.activate_localization_mode()
+    torch.cuda.synchronize()
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in RESUME_FRAMES:
+        system.track_stereo_device(pairs[f], world.timestamps[f])
+    system.tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    new = system.tracker.records[n_saved:]
+    tracked = [(r, f) for r, f in zip(new, RESUME_FRAMES) if not r.lost]
+    first = next((i for i, r in enumerate(new) if not r.lost), None)
+
+    def centre(T):
+        return -T[:3, :3].T.astype(np.float64) @ T[:3, 3].astype(np.float64)
+
+    # the map's world aligned to the truth's over these frames, through the saved trajectory
+    c_saved = np.stack([centre(saved[f]) for f in RESUME_FRAMES])
+    c_true = np.stack([centre(world.poses[f]) for f in RESUME_FRAMES])
+    R, t, _ = trajectory.umeyama_alignment(c_saved, c_true, with_scale=False)
+    errs = [float(np.linalg.norm(R @ centre(r.pose) + t - centre(world.poses[f]))) for r, f in tracked]
+    to_saved = [round(float(np.linalg.norm(centre(r.pose) - centre(saved[f]))), 3) for r, f in tracked]
+    saved_errs = [round(float(e), 3) for e in np.linalg.norm(c_saved @ R.T + t - c_true, axis=1)]
+    events = [e for e in system.tracker.metrics.records if e.get("relocalized")]
+    print(f"resume run: map file {os.path.getsize(path) / 2**20:.1f} MiB, saved in {save_s:.2f} s, loaded in "
+          f"{load_s:.2f} s ({n_saved} records, {kfs} keyframes); localization mode over bench frames "
+          f"{RESUME_FRAMES[0]}-{RESUME_FRAMES[-1]} in {wall:.3f} s: first tracked frame #{first} of the 30, "
+          f"relocalizations " + ", ".join(f"frame {e['frame_id']} against keyframe {e['reloc_kf']} with "
+                                          f"{e['inliers']} inliers" for e in events)
+          + f"; {len(tracked)} tracked; keyframes {system.arena.n_valid_kfs} (was {kfs}); worst camera centre "
+          f"{max(errs) if errs else float('nan'):.4f} m from the truth in the aligned world (tolerance "
+          f"{RESUME_CENTRE_TOL_M}; per tracked frame {[round(e, 3) for e in errs]}; the saved trajectory's own "
+          f"{saved_errs}); distance to the saved trajectory per frame {to_saved}; fast_nms launches {launches}",
+          flush=True)
+    if first is None or first > 2:
+        _fail("none of the first three frames relocalized against the loaded map")
+    if len(tracked) < RESUME_MIN_TRACKED:
+        _fail(f"only {len(tracked)} of 30 frames tracked against the loaded map")
+    if system.arena.n_valid_kfs != kfs:
+        _fail("localization mode changed the keyframe count")
+    if not max(errs) <= RESUME_CENTRE_TOL_M:
+        _fail(f"a tracked camera centre is {max(errs)} m from the truth in the aligned world")
+    if launches != len(RESUME_FRAMES):
+        _fail(f"fast_nms launches {launches} != one per frame over {len(RESUME_FRAMES)} frames")
+    if not _state_on_card(system):
+        _fail("a tracker state tensor is off the CUDA device in the resume run")
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
-    from slam_framework_torch import native
+    from slam_framework_torch import BUILD_DIR, native
     from slam_framework_torch.config import SlamConfig
     from slam_framework_torch.io import synthetic, trajectory
     from slam_framework_torch.ops import fast_cuda, pyramid
@@ -553,6 +838,9 @@ def main() -> None:
     # ---- 5. loop programs on the card against the CPU
     _loop_programs(torch, dev, cfg, pairs_np, timing)
 
+    # ---- 5b. relocalization programs on the card against the CPU
+    _reloc_programs(torch, dev, cfg, timing)
+
     # ---- 6. main path
     pairs = [torch.from_numpy(np.stack([l, r])).to(dev) for l, r in pairs_np]
     torch.cuda.synchronize()
@@ -624,10 +912,7 @@ def main() -> None:
     )
     if "gba" not in report:
         _fail(f"the global BA of the closure was not merged: {report}")
-    store = system.tracker.local_mapper.kf_store
-    state_tensors = (list(system.tracker._dstate) + list(system.tracker._block) + [store.packs, store.descs]
-                     + list(closer._tables))
-    if any(t.device.type != "cuda" for t in state_tensors):
+    if not _state_on_card(system):
         _fail("a tracker or mapper state tensor is off the CUDA device")
     if stats["keyframes"] <= 12 or mapper["ba_applied"] < 1 or mapper["triangulated"] < 1:
         _fail(f"the mapper did not work: {stats['keyframes']} keyframes, {mapper['ba_applied']} BAs applied, "
@@ -638,6 +923,17 @@ def main() -> None:
         _fail(f"fast_nms launches {launches} != one per frame over {N_FRAMES} frames")
     if not ate <= ATE_BOUND_M:
         _fail(f"ATE {ate} m above the bound {ATE_BOUND_M} m")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    map_path = os.path.join(BUILD_DIR, "smoke_map.npz")
+    t0 = time.perf_counter()
+    system.save_map(map_path)
+    save_s = time.perf_counter() - t0
+
+    # ---- 7. blackout run
+    blackout = _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem)
+
+    # ---- 8. resume run
+    resume = _resume_run(torch, dev, cfg, world, pairs, fast_cuda, trajectory, SlamSystem, map_path, save_s)
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms_strength",
@@ -653,6 +949,8 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes this function
         "ms_l2_flushed": flushed_ms,
         "host_ms": host_ms,
+        "launches_blackout_run": blackout["launches"],
+        "launches_resume_run": resume["launches"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

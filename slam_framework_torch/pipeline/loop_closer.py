@@ -19,8 +19,8 @@ and the global BA at a later keyframe (`apply_pending_gba`): neither is waited
 for where it is launched.
 
 Not carried over: the fetch registry that folds the BoW transform into the
-tracker's drain, the shared program cache, the device mesh with the sharded
-global BA and point migration, and `ensure_bow_current` (the relocalizer's).
+tracker's drain, the shared program cache, and the device mesh with the
+sharded global BA and point migration.
 """
 
 from __future__ import annotations
@@ -270,6 +270,17 @@ class LoopCloser:
         The LoopClosing thread's keyframe queue gives the same decoupling
         (loop_closer.cpp:61-85)."""
         self._bow_pending = (kf,) + self._transform(kf)
+
+    def ensure_bow_current(self) -> None:
+        """Land the in-flight BoW into the database now (the relocalizer calls
+        this before retrieving candidates). When tracking is lost right after a
+        keyframe, that keyframe's BoW waits for a harvest at the NEXT keyframe,
+        which never comes while lost, and the nearest candidate would be
+        invisible. The loop detection of that keyframe is skipped: the
+        relocalizer needs the database row only."""
+        prev = self._harvest_bow()
+        if prev is not None:
+            self.db.add(prev[0], prev[1])
 
     def _harvest_bow(self):
         if self._bow_pending is None:

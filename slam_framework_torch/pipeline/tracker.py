@@ -14,9 +14,16 @@ Every keyframe goes through the local mapper (pipeline/local_mapper.py: point
 culling, multi-view triangulation, neighbour fusion, keyframe culling, local
 BA) before the block is rebuilt, and `flush()` finalizes it. Just before
 that, `on_new_keyframe` (set by SlamSystem) hands the keyframe to place
-recognition and loop closing. Not ported yet: relocalisation. Tracking loss
-therefore behaves like the reference with no relocalizer: every later frame
-is lost.
+recognition and loop closing.
+
+A lost frame goes to the relocalizer (pipeline/relocalization.py, set by
+SlamSystem once place recognition exists): the front-end runs on the device,
+the feature block is read back once, and on success the device state is
+re-seeded from the relocalized pose and chunked tracking resumes, under the
+stricter inlier bar for `max_frames_between_kfs` frames. In localization mode
+(`localization_only`) no keyframe is made; the reference keyframe then follows
+the camera and the block is rebuilt around it, which the reference package
+omits (its block refreshes at keyframes only, so it goes stale).
 
 Chunks run serially on the host, in the order of the reference's pipeline
 depth 1: run the chunk; read its results back together with the mapper's
@@ -117,6 +124,9 @@ class StereoTracker:
         self.timers = StageTimers()
         self.on_new_keyframe = None  # hook: called with the keyframe's id after insertion
         self.local_mapper = LocalMapper(cfg, self.arena, self.K, timers=self.timers, device=self.device)
+        self.relocalizer = None            # set by SlamSystem once place recognition exists
+        self.localization_only = False     # ActivateLocalizationMode (slam_system.h:38)
+        self._last_reloc_fid = -(10**9)    # start of the strict inlier bar (tracker.cpp:1166)
         self._dstate: Optional[DeviceTrackState] = None
         self._block: Optional[track_ops.PointBlock] = None
         self._block_ids: Optional[np.ndarray] = None   # (P,) int32 — point id per block slot
@@ -271,10 +281,10 @@ class StereoTracker:
             self.frame_id += 1
             return self.records[-1].pose if ok else None
         if self.state == TrackingState.LOST:
-            # no relocalizer in the port yet: the frame stays lost
-            self.records.append(FrameRecord(self.frame_id, timestamp, None, True, self.ref_kf))
+            with self.timers.time("relocalize"), trace_span("tracker/relocalize"):
+                self._track_lost(pair, timestamp)
             self.frame_id += 1
-            return None
+            return self.records[-1].pose
         self._buf.append((pair, self.frame_id, timestamp))
         self.frame_id += 1
         if len(self._buf) >= self.sync_every:
@@ -307,6 +317,7 @@ class StereoTracker:
         self.arena.pt_n_visible[pids[ok_pid]] += vis[live][ok_pid]
         self.arena.pt_n_found[pids[ok_pid]] += found[live][ok_pid]
         made_kf = 0
+        last_tracked = None
         for j, (fid, ts) in enumerate(zip(fids, tss)):
             if self.state == TrackingState.LOST:
                 # frames after a lost frame were tracked from a lost state
@@ -315,10 +326,13 @@ class StereoTracker:
             s = summaries[j]
             pose = s[0:16].reshape(4, 4).astype(np.float32)
             n_inliers = int(s[17])
-            # TrackLocalMap acceptance (tracker.cpp:1166-1174), scaled with the
-            # feature budget (exact at 2000 features)
+            # TrackLocalMap acceptance (tracker.cpp:1166-1174): 30 inliers, 50
+            # within max_frames_between_kfs of a relocalization, both scaled
+            # with the feature budget (exact at 2000 features)
             nf_scale = self.cfg.orb.num_features / 2000.0
             min_inl = max(15, round(self.cfg.tracker.track_local_map_min_inliers * nf_scale))
+            if fid - self._last_reloc_fid < self.cfg.max_frames_between_kfs:
+                min_inl = max(min_inl, round(self.cfg.tracker.track_local_map_min_inliers_reloc * nf_scale))
             if n_inliers < min_inl:
                 self.state = TrackingState.LOST
                 rec = FrameRecord(fid, ts, None, True, self.ref_kf)
@@ -326,12 +340,14 @@ class StereoTracker:
                                  matches=int(s[16]), inliers=n_inliers)
             else:
                 self.state = TrackingState.OK
+                last_tracked = j
                 rec = FrameRecord(fid, ts, pose, False, self.ref_kf)
                 self.metrics.add(event="frame", frame_id=fid,
                                  matches=int(s[16]), inliers=n_inliers,
                                  visible=int(s[21]), motion_inliers=int(s[22]),
                                  close_tracked=int(s[18]), close_new=int(s[19]))
-                if made_kf < self.max_kfs_per_chunk and self._need_new_keyframe(fid, s):
+                if (made_kf < self.max_kfs_per_chunk and not self.localization_only
+                        and self._need_new_keyframe(fid, s)):
                     self._create_keyframe(
                         fid, ts, pose, packs[j], descs[j], block_ids, packs_dev[j], descs_dev[j],
                         ba_data=ba_data, tri_data=tri_data, fuse_data=fuse_data,
@@ -349,11 +365,81 @@ class StereoTracker:
             self.local_mapper.apply_pending_triangulation(prefetched=tri_data)
         if ba_data is not None:
             self.local_mapper.flush_ba(prefetched=ba_data)
+        if self.localization_only and self.state == TrackingState.OK and last_tracked is not None:
+            self._follow_reference_keyframe(packs[last_tracked], block_ids)
         if self.state == TrackingState.LOST:
             # drop buffered work — it descends from the lost state
             for (_pair, fid2, ts2) in self._buf:
                 self.records.append(FrameRecord(fid2, ts2, None, True, self.ref_kf))
             self._buf = []
+
+    def _follow_reference_keyframe(self, pack: np.ndarray, block_ids: np.ndarray) -> None:
+        """Localization mode makes no keyframe, so nothing would rebuild the local
+        block as the camera moves on. The reference keyframe follows the camera
+        instead: the keyframe observing the most of the frame's tracked points
+        (UpdateLocalKeyFrames, tracker.cpp:1047-1117; the lowest id on a tie),
+        and the block is rebuilt around it when it changes."""
+        arena = self.arena
+        slot = pack[:, 7].astype(np.int32)
+        pids = block_ids[slot[slot >= 0]]
+        pids = pids[pids >= 0]
+        kfs = arena.pt_obs_kf[pids[arena.pt_valid[pids]]].ravel()
+        kfs = kfs[kfs >= 0]
+        if len(kfs) == 0:
+            return
+        best = int(np.argmax(np.bincount(kfs)))
+        if best == self.ref_kf or not arena.kf_valid[best]:
+            return
+        old_ids = self._block_ids
+        self.ref_kf = best
+        self._rebuild_block()
+        if self._pending_remap is None:
+            self._pending_remap = old_ids
+
+    # ------------------------------------------------------------------ relocalization
+
+    def _track_lost(self, pair: torch.Tensor, timestamp) -> None:
+        """One relocalization attempt (Tracker::Relocalization, tracker.cpp:826-991).
+        The front-end runs on the device and its feature block comes back in one
+        read; on success the device state is re-seeded from the relocalized
+        pose against the rebuilt block, and chunked tracking resumes."""
+        fd = self.frontend(pair[0], pair[1])
+        f32 = torch.float32
+        pack = torch.stack([fd.xy[:, 0], fd.xy[:, 1], fd.u_right, fd.octave.to(f32), fd.angle,
+                            fd.valid.to(f32)], dim=-1)
+        # one read: the float columns travel as their int32 bits beside the descriptors
+        block = torch.cat([pack.view(torch.int32), fd.desc], dim=-1).cpu().numpy()
+        cols = np.ascontiguousarray(block[:, :6]).view(np.float32)
+        host = {"xy": cols[:, 0:2], "u_right": cols[:, 2], "octave": cols[:, 3].astype(np.int32),
+                "angle": cols[:, 4], "valid": cols[:, 5] > 0.5,
+                "desc": np.ascontiguousarray(block[:, 6:14]).view(np.uint32)}
+        res = self.relocalizer.try_relocalize(host) if self.relocalizer is not None else None
+        if res is None:
+            self.records.append(FrameRecord(self.frame_id, timestamp, None, True, self.ref_kf))
+            return
+        self.state = TrackingState.OK
+        self.ref_kf = res.kf
+        self._last_reloc_fid = self.frame_id
+        self._pending_remap = None  # the state is re-seeded below against the new block
+        self._rebuild_block()
+        point_ids = np.full(host["desc"].shape[0], -1, np.int32)
+        point_ids[res.feat_idx] = res.point_ids
+        slot = self._ids_to_slots(point_ids)
+        dev = self.device
+        self._dstate = DeviceTrackState(
+            pose=torch.from_numpy(res.pose).to(dev),
+            velocity=torch.eye(4, dtype=torch.float32, device=dev),
+            desc=fd.desc,
+            octave=fd.octave,
+            angle=fd.angle,
+            pt_pos=torch.from_numpy(self._block_pos_for_slots(slot)).to(dev),
+            pt_mask=torch.from_numpy(slot >= 0).to(dev),
+            assoc_slot=torch.from_numpy(slot).to(dev),
+        )
+        self.records.append(FrameRecord(self.frame_id, timestamp, res.pose, False, res.kf,
+                                        self._rel_to_ref(res.pose, res.kf)))
+        self.metrics.add(event="frame", frame_id=self.frame_id, matches=res.n_inliers,
+                         inliers=res.n_inliers, relocalized=True, reloc_kf=res.kf)
 
     def _need_new_keyframe(self, fid: int, s: np.ndarray) -> bool:
         """NeedNewKeyFrame (tracker.cpp:1229-1309) from the device summary."""

@@ -8,7 +8,7 @@ eigenvector of the 4x4 N matrix (batched eigh), optional scale (fixed to 1 for
 stereo / RGB-D, slam_system.cpp:63-66), then reprojection-error inlier counts
 in BOTH images (:344-368) and a Gauss-Newton refinement of the winner.
 
-The random part is split off: `sample_index_sets` draws the (H, 3) index sets
+The random part is split off: `sample_index_sets` draws the (H, S) index sets
 on the host from an explicit `torch.Generator`, and `solve_sim3_ransac` takes
 them. The card and the CPU then test the same hypotheses, and a test can hand
 the same sets to the reference. A triplet with a repeated index gives a
@@ -36,13 +36,17 @@ class Sim3Result(NamedTuple):
     ok: torch.Tensor         # () bool
 
 
-def sample_index_sets(mask: torch.Tensor, n_hypotheses: int, generator: torch.Generator) -> torch.Tensor:
-    """(H, 3) int64 indices drawn with replacement, uniformly over the True
-    entries of the HOST tensor `mask`, from a host generator."""
+def sample_index_sets(mask: torch.Tensor, n_hypotheses: int, generator: torch.Generator,
+                      set_size: int = 3) -> torch.Tensor:
+    """(H, set_size) int64 indices drawn with replacement, uniformly over the
+    True entries of the HOST tensor `mask`, from a host generator: the
+    distribution of the reference's `jax.random.choice(..., p=mask / sum)`.
+    Sim3 draws 3, PnP-2D 6 (`pnp.MIN_SET`), PnP-3D 3."""
     probs = mask.to(torch.float32)
     if not bool(probs.any()):
-        return torch.zeros((n_hypotheses, 3), dtype=torch.long)
-    return torch.multinomial(probs, n_hypotheses * 3, replacement=True, generator=generator).reshape(n_hypotheses, 3)
+        return torch.zeros((n_hypotheses, set_size), dtype=torch.long)
+    return torch.multinomial(probs, n_hypotheses * set_size, replacement=True,
+                             generator=generator).reshape(n_hypotheses, set_size)
 
 
 def horn_alignment(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool):

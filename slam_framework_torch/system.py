@@ -1,18 +1,19 @@
 """SlamSystem façade of the port: stereo tracking, local mapping, place
-recognition and loop closing.
+recognition, loop closing and relocalization.
 
 Port of slam_framework_tpu/system.py: construction from a config (+ vocabulary),
 the stereo per-frame entry points (TrackStereo, slam_system.cpp:89-129), the
-young-map reset, shutdown statistics and the KITTI trajectory export. The
-tracker owns the local mapper (pipeline/local_mapper.py); every new keyframe is
-handed to the loop closer (pipeline/loop_closer.py) before the mapper processes
-it.
+localization-mode switch (:131-141), the young-map reset, shutdown statistics,
+structured metrics, the KITTI trajectory exports (:264-349) and the map
+checkpoint (`save_map` / `load_map`, the reference's SaveMap TODO). The tracker
+owns the local mapper (pipeline/local_mapper.py); every new keyframe is handed
+to the loop closer (pipeline/loop_closer.py) before the mapper processes it,
+and a lost frame to the relocalizer (pipeline/relocalization.py) built from
+the loop closer.
 
 The vocabulary is `cfg.vocabulary_path` or the shipped asset; when no file
 loads, one is trained online from the first keyframes' descriptors, and place
-recognition starts once it exists.
-Relocalization is not ported yet: no `Relocalizer` is built from the loop
-closer, and a lost frame stays lost.
+recognition and relocalization start once it exists.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 from slam_framework_torch import resolve_device
 from slam_framework_torch.bow import vocabulary as bow_vocab
 from slam_framework_torch.config import SlamConfig
-from slam_framework_torch.io import trajectory
+from slam_framework_torch.io import checkpoint, trajectory
 from slam_framework_torch.map.arena import MapArena
 from slam_framework_torch.pipeline.loop_closer import LoopCloser
+from slam_framework_torch.pipeline.relocalization import Relocalizer
 from slam_framework_torch.pipeline.tracker import StereoTracker, TrackingState
 
 
@@ -63,9 +65,9 @@ class SlamSystem:
         self.n_resets = 0
         self._build()
 
-    def _build(self) -> None:
+    def _build(self, arena: Optional[MapArena] = None) -> None:
         cfg = self.cfg
-        self.arena = MapArena.create(cfg.capacity, cfg.capacity.max_features)
+        self.arena = arena if arena is not None else MapArena.create(cfg.capacity, cfg.capacity.max_features)
         self.tracker = StereoTracker(cfg, self.arena, sync_every=self.sync_every, device=self.device)
         self.loop_closer: Optional[LoopCloser] = None
         if self.place_recognition:
@@ -98,6 +100,25 @@ class SlamSystem:
             "mapper": dict(mapper.totals),
         }
 
+    def metrics_summary(self) -> dict:
+        """Structured run metrics: tracking aggregates, per-stage wall clocks
+        and the capacity clips of every stage."""
+        caps = dict(self.tracker.local_mapper.cap_clips)
+        if self.loop_closer is not None:
+            caps.update(self.loop_closer.cap_clips)
+        block_clips = [r for r in self.tracker.metrics.records if r.get("event") == "cap_clip"]
+        if block_clips:
+            caps["local_block_points"] = sum(r.get("dropped", 0) for r in block_clips)
+        return {
+            "tracking": self.tracker.metrics.summary(),
+            "stages": self.tracker.timers.summary(),
+            "cap_clips": caps,
+        }
+
+    def dump_metrics(self, path: str) -> None:
+        """Write the structured event log (one JSON line per frame / keyframe)."""
+        self.tracker.metrics.to_jsonl(path)
+
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float):
         """Per-frame stereo entry from host images. Returns the latest synced
         Tcw (lags up to sync_every frames) or None."""
@@ -112,12 +133,26 @@ class SlamSystem:
         return pose
 
     def _maybe_reset(self) -> None:
-        # the reference resets on a young-map loss (tracker.cpp:613-620)
+        # the reference resets on a young-map loss (tracker.cpp:613-620) even
+        # with a relocalizer: the reset comes before the next frame's attempt
         if (
             self.tracker.state == TrackingState.LOST
             and self.arena.n_valid_kfs <= self.RESET_IF_LOST_BELOW_KFS
         ):
             self.reset()
+
+    # ------------------------------------------------------------------ modes
+
+    def activate_localization_mode(self) -> None:
+        """Tracking only: no new keyframes, the map stays as it is (slam_system.cpp:131-141)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.localization_only = False
+
+    @property
+    def tracking_state(self) -> TrackingState:
+        return self.tracker.state
 
     # ------------------------------------------------------------------ stage wiring
 
@@ -130,6 +165,9 @@ class SlamSystem:
             self.loop_closer.bow_frames.pop(k, None)
 
         mapper.on_erase_keyframe = _forget
+        # rebuilt with the loop closer, so online vocabulary training renews it too
+        self.tracker.relocalizer = Relocalizer(self.cfg, self.arena, self.tracker.K, self.loop_closer,
+                                               device=self.device)
 
     def _on_new_keyframe(self, kf: int) -> None:
         # 1. online vocabulary training once the map has enough texture
@@ -234,3 +272,42 @@ class SlamSystem:
     def save_trajectory_kitti(self, path: str) -> None:
         """Per-frame camera trajectory in KITTI format (slam_system.cpp:264-314)."""
         trajectory.save_kitti(path, self.frame_poses())
+
+    def save_keyframe_trajectory(self, path: str) -> None:
+        """Keyframe-only trajectory (slam_system.cpp:316-349)."""
+        self._settle()
+        kfs = np.nonzero(self.arena.kf_valid[: self.arena.num_kfs])[0]
+        trajectory.save_kitti(path, self.arena.kf_pose[kfs])
+
+    # ------------------------------------------------------------------ checkpoint
+
+    def save_map(self, path: str) -> None:
+        """Persist map + trajectory records + vocabulary (io/checkpoint.py)."""
+        self._settle()
+        checkpoint.save_map(path, self.arena, self.tracker.records, self.vocab)
+
+    def load_map(self, path: str) -> None:
+        """Restore a saved map (written by either package). The tracker resumes
+        LOST and relocalizes against the loaded map on the next frames; the
+        trajectory keeps the saved frame numbering. The BoW database is
+        backfilled, which also puts every keyframe's features on the device
+        store."""
+        arena, records, vocab = checkpoint.load_map(path)
+        if vocab is not None:
+            self.vocab = vocab
+        self._build(arena=arena)
+        tracker = self.tracker
+        if records:
+            tracker.records = records
+            tracker.frame_id = records[-1].frame_id + 1
+        valid = np.nonzero(arena.kf_valid[: arena.num_kfs])[0]
+        if len(valid):
+            tracker.ref_kf = int(valid[-1])
+            tracker.last_kf_frame_id = int(arena.kf_frame_id[valid[-1]])
+            tracker.state = TrackingState.LOST  # relocalize to resume
+        closer = self.loop_closer
+        if closer is not None:
+            for k in valid:
+                bow = closer.compute_bow(int(k))
+                closer.bow_frames[int(k)] = bow
+                closer.db.add(int(k), bow)

@@ -19,7 +19,9 @@ Prints {"metric", "value", "unit", "vs_baseline", "ate_m", "frames",
 "lost_frames", "loops_closed", "keyframes"} and "device" (the card's name,
 or "cpu": a CPU run's rate says nothing about the card): frames/s on the host
 clock, frames/s over the 10 fps sensor rate, and the SE3-aligned ATE of the
-final per-frame trajectory against ground truth.
+final per-frame trajectory against ground truth. `--blackout A-B` blanks
+frames A..B (a uniform gray pair) so the relocalizer must recover tracking;
+the line then adds the relocalized frame and the ATE over tracked frames.
 """
 
 from __future__ import annotations
@@ -35,17 +37,19 @@ from slam_framework_torch import resolve_device
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.io import trajectory
 from slam_framework_torch.system import SlamSystem
-from slam_framework_torch.tools.track_bench_world import bench_world
+from slam_framework_torch.tools.track_bench_world import (
+    bench_world, blackout_summary, frame_pair, parse_blackout)
 
 
 WARM_FRAMES = 9  # the initial frame + one chunk of 8
 
 
-def run(n_frames: int = 330, device=None, sync: int = 8) -> dict:
+def run(n_frames: int = 330, device=None, sync: int = 8, blackout: str = "") -> dict:
     device = resolve_device(device)
     cfg = SlamConfig()
     world = bench_world(cfg, num_frames=max(n_frames, 330))
-    pairs = [torch.from_numpy(np.stack(world.stereo_pair(f))).to(device) for f in range(n_frames)]
+    blank = parse_blackout(blackout)
+    pairs = [torch.from_numpy(np.stack(frame_pair(world, f, blank))).to(device) for f in range(n_frames)]
 
     def sync_device():
         if device.type == "cuda":
@@ -70,6 +74,10 @@ def run(n_frames: int = 330, device=None, sync: int = 8) -> dict:
 
     est = system.frame_poses()
     fps = n_frames / wall
+    extra = {}
+    if blank:
+        summary = blackout_summary(system, world, blank)
+        extra = {k: summary[k] for k in ("blackout", "relocalized_frame", "ate_tracked_m")}
     return {
         "metric": "stereo_tracked_frames_per_sec",
         "value": round(fps, 2),
@@ -81,6 +89,7 @@ def run(n_frames: int = 330, device=None, sync: int = 8) -> dict:
         "loops_closed": stats.get("loops_closed", 0),
         "keyframes": stats.get("keyframes", 0),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        **extra,
     }
 
 
@@ -89,8 +98,9 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=330)
     ap.add_argument("--sync", type=int, default=8)
     ap.add_argument("--device", default=None, help="cpu, cuda, cuda:1 ... (default: the first CUDA device)")
+    ap.add_argument("--blackout", default="", help="A-B: frames A..B (inclusive) become a blank gray pair")
     args = ap.parse_args()
-    print(json.dumps(run(args.frames, args.device, args.sync)), flush=True)
+    print(json.dumps(run(args.frames, args.device, args.sync, args.blackout)), flush=True)
 
 
 if __name__ == "__main__":

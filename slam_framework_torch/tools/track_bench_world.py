@@ -10,7 +10,12 @@ line: frames/s on the host clock, ATE against ground truth (SE3-aligned), lost
 frames, keyframes, map points, loops closed, the loop closer's report and its
 number of Sim3 attempts, the mapper's totals and the stage timers.
 `chip_smoke.py`'s ATE bound is twice the ATE this prints on the CPU over the
-same frames. `--threads` caps torch's CPU threads.
+same frames. `--threads` caps torch's CPU threads. `--blackout A-B` replaces
+frames A..B (inclusive) by a uniform gray (90) pair, so tracking is lost there
+and the relocalizer must recover it; the line then also carries the lost
+frames, the frame tracked again after the blackout with its relocalization
+event and the ATE over the tracked frames alone (`chip_smoke.py`'s phase 7
+bound is twice that on the CPU).
 """
 
 from __future__ import annotations
@@ -34,6 +39,41 @@ def bench_world(cfg: SlamConfig, num_frames: int = 330):
     )
 
 
+def parse_blackout(text: str):
+    """'A-B' -> range(A, B + 1); '' -> an empty range."""
+    if not text:
+        return range(0)
+    a, b = (int(x) for x in text.split("-"))
+    return range(a, b + 1)
+
+
+def frame_pair(world, f: int, blackout):
+    """World frame f's stereo pair, or a uniform gray (90) pair inside the blackout."""
+    left, right = world.stereo_pair(f)
+    if f in blackout:
+        return np.full_like(left, 90), np.full_like(right, 90)
+    return left, right
+
+
+def blackout_summary(system: SlamSystem, world, blackout) -> dict:
+    """Lost frames, the first frame tracked after the blackout with its
+    relocalization event, and the ATE over the tracked frames."""
+    records = system.tracker.records
+    tracked = [i for i, r in enumerate(records) if not r.lost]
+    est = system.frame_poses()[tracked]
+    gt = world.poses[[records[i].frame_id for i in tracked]]
+    after = [r for r in records if not r.lost and blackout and r.frame_id > blackout[-1]]
+    return {
+        "blackout": [blackout[0], blackout[-1]] if blackout else None,
+        "lost_frames": [r.frame_id for r in records if r.lost],
+        "relocalized_frame": after[0].frame_id if after else None,
+        "relocalized_against_kf": after[0].ref_kf if after else None,
+        "reloc_events": [e for e in system.tracker.metrics.records if e.get("relocalized")],
+        "reloc_attempts": system.tracker.relocalizer.n_attempts if system.tracker.relocalizer else 0,
+        "ate_tracked_m": trajectory.ate_rmse(est, gt, align="se3"),
+    }
+
+
 def loop_summary(system: SlamSystem) -> dict:
     """What the loop stage did: where it closed, its last report, its attempts."""
     closer = system.loop_closer
@@ -54,6 +94,7 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="cpu, cuda, cuda:1 ... (default: the first CUDA device)")
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--no-loop-closer", action="store_true", help="tracking and mapping alone")
+    ap.add_argument("--blackout", default="", help="A-B: frames A..B (inclusive) become a blank gray pair")
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -62,9 +103,10 @@ def main() -> None:
     world = bench_world(cfg, num_frames=max(args.frames, 330))
     system = SlamSystem(cfg, sensor="stereo", sync_every=args.sync, device=args.device,
                         place_recognition=not args.no_loop_closer)
+    blackout = parse_blackout(args.blackout)
     t0 = time.perf_counter()
     for f in range(args.frames):
-        system.track_stereo(*world.stereo_pair(f), world.timestamps[f])
+        system.track_stereo(*frame_pair(world, f, blackout), world.timestamps[f])
     stats = system.shutdown()
     wall = time.perf_counter() - t0
     est = system.frame_poses()
@@ -77,6 +119,7 @@ def main() -> None:
         "first_lost_frame": next((r.frame_id for r in records if r.lost), None),
         "stats": stats,
         **loop_summary(system),
+        **(blackout_summary(system, world, blackout) if blackout else {}),
         "timers": system.tracker.timers.summary(),
     }, default=float), flush=True)
 

@@ -44,11 +44,13 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2
 want = ["geometry.triangulation", "optim.local_ba", "pipeline.kf_store", "pipeline.mapping_ops",
         "pipeline.local_mapper", "tools.ba_synthetic", "tools.track_bench_world",
         "geometry.sim3", "bow.vocabulary", "bow.database", "solvers.sim3solver", "optim.pose_graph",
-        "optim.global_ba", "pipeline.loop_closer", "tools.bench_torch"]
+        "optim.global_ba", "pipeline.loop_closer", "tools.bench_torch",
+        "solvers.pnp", "pipeline.relocalization", "io.checkpoint"]
 missing = [w for w in want if "slam_framework_torch." + w not in sys.modules]
 print(json.dumps({"modules": len(mods), "missing": missing, "frames": len(s.tracker.records),
                   "lost": sum(r.lost for r in s.tracker.records), "bad": bad,
-                  "vocab_nodes": s.vocab.num_nodes, "db": len(s.loop_closer.db.frames) + (s.loop_closer._bow_pending is not None)}))
+                  "vocab_nodes": s.vocab.num_nodes, "db": len(s.loop_closer.db.frames) + (s.loop_closer._bow_pending is not None),
+                  "relocalizer": type(s.tracker.relocalizer).__name__}))
 """
 
 
@@ -58,10 +60,12 @@ def test_port_imports_and_tracks_without_jax_cv2_or_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["modules"] >= 37 and res["frames"] == 3 and res["lost"] == 0
+    assert res["modules"] >= 40 and res["frames"] == 3 and res["lost"] == 0
     assert res["missing"] == []
     # the shipped vocabulary loaded and the first keyframe reached place recognition
     assert res["vocab_nodes"] == 110343 and res["db"] >= 1
+    # and the relocalizer was built from the loop closer
+    assert res["relocalizer"] == "Relocalizer"
 
 
 def test_tf32_pinned_off():
