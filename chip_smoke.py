@@ -8,14 +8,17 @@ Phases (any failure exits non-zero before the final line):
   2. build: compiles the FAST+NMS kernel (csrc/fast_nms.cu, nvcc, sm_90a) and
      says whether the arena's native host library built (g++);
   3. kernel vs plain on the card: all 8 pyramid levels of both images of
-     bench frame 0 in ONE launch, then images of odd shapes (75x140; 7x5;
+     bench frame 0 in ONE launch, the 8 levels of one image as an RGB-D and a
+     monocular frame hand them over (bench frames 0 and 1) in one launch each,
+     then images of odd shapes (75x140; 7x5;
      200x17, narrower than a tile and taller; signed values) in one launch, and
      the single-shape batch form; tolerance 0 (torch.equal). Then the
      kernel's time per stereo frame: device time from a CUDA graph of 50
      16-image calls between two events (L2 warm, as the front-end finds the
      levels it has just written; and with the L2 flushed before every call),
      the host's time for the one wrapper call, the plain version's device
-     time, and the bound from this frame's pixel count;
+     time, and the bound from this frame's pixel count; the same for the
+     8-image list of one RGB-D / monocular frame;
   4. mapper programs on the card against the CPU (a device check, not a kernel
      check: these programs are plain PyTorch, as they are left to XLA in the
      reference): a seeded synthetic BA problem at the default capacities (32
@@ -70,7 +73,14 @@ Phases (any failure exits non-zero before the final line):
      on the same pixels plus sync_every, the ATE over the tracked frames is at
      most twice the port's CPU figure, 330 FAST launches and every state tensor
      on the card. Prints the time per relocalization attempt, the kernels and
-     copies of one attempt, and the stage timers;
+     copies of one attempt, and the stage timers. Then the first attempt after
+     the blackout is replayed: the map as it stood just before it (saved with
+     `checkpoint.save_map`), the relocalizer's generator state and the frame's
+     feature block are loaded into fresh systems on the card and on the CPU,
+     and each replays the attempt from those features, then from the frame's
+     pixels through its own front-end; the per-candidate reports (BoW matches,
+     RANSAC, motion-only BA and guided-retry inliers) are printed side by side
+     with the live attempt's;
   8. resume run: a fresh SlamSystem loads the saved map (`load_map`), goes into
      localization mode and is fed bench frames 200-229. Fails unless it is LOST
      after the load, one of the first three frames relocalizes, at least 25 of
@@ -80,13 +90,27 @@ Phases (any failure exits non-zero before the final line):
      the same frames), and the frames made 30 FAST launches. Prints the file's
      size, the save and load times, and each frame's distance to the saved
      trajectory (between keyframes the saved records carry the first run's own
-     tracking error, up to ~0.3 m; at its keyframes they agree within 1 cm).
-Then one JSON line describing the kernel, and the device line last.
+     tracking error, up to ~0.3 m; at its keyframes they agree within 1 cm);
+  9. RGB-D run: the same 330 frames as (left image, its ray-cast depth)
+     through an RGB-D SlamSystem's `track_rgbd` (the depth comes from the ray
+     cast that rendered the left image: no second ray cast). Fails unless lost
+     frames are at most the reference's on the same pixels plus sync_every,
+     loops closed at least the reference's, the SE3-aligned ATE at most twice
+     the reference's CPU ATE, one FAST launch (8 images) per frame and every
+     state tensor on the card;
+  10. monocular run: the left images through a monocular SlamSystem's
+     `track_monocular` (tools/bench_mono.py's world). Prints the init frame and
+     the map's median depth after it. Held like phase 9, with frames without a
+     tracked pose in place of lost frames and the Sim3-aligned ATE.
+The world is rendered by a pool of worker processes. Then the smoke's total
+time, one JSON line describing the kernel, and the device line last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -140,6 +164,17 @@ ATE_BLACKOUT_BOUND_M = 2 * ATE_BLACKOUT_CPU_M
 RESUME_FRAMES = range(200, 230)
 RESUME_MIN_TRACKED = 25
 RESUME_CENTRE_TOL_M = 0.3
+# RGB-D and monocular runs. The reference SlamSystem on the same pixels on the
+# CPU (`JAX_PLATFORMS=cpu python tools/ref_sensor_bench_world.py --sensor rgbd`
+# / `--sensor monocular`): RGB-D 0 lost, 1 loop (keyframe 74 against 0), 80
+# keyframes, ATE 0.4484 m (SE3); monocular initialized at frame 1 (against 0),
+# every frame tracked, 1 loop (keyframe 51 against 1), 49 keyframes, ATE
+# 0.4452 m (Sim3). Bounds: lost (untracked) <= the reference's + SYNC, loops
+# >= the reference's, ATE <= twice the reference's.
+REF_RGBD = {"lost": 0, "loops": 1, "ate_m": 0.4484}
+REF_MONO = {"untracked": 0, "loops": 1, "ate_m": 0.4452}
+MONO_FRAMES = 330
+RENDER_PROCS = 8
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
@@ -613,8 +648,17 @@ def _state_on_card(system) -> bool:
     return all(t.device.type == "cuda" for t in tensors)
 
 
-def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem) -> dict:
-    """Phase 7: the bench world with frames 110-112 blank, relocalization and the loop."""
+def _steps(report) -> list:
+    """A relocalizer's last_report with the BoW match rows counted."""
+    return [{k: (len(v) if k == "rows" else v) for k, v in step.items()} for step in report]
+
+
+def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem, snap_path: str) -> dict:
+    """Phase 7: the bench world with frames 110-112 blank, relocalization and the loop.
+    The map, the relocalizer's generator and the features just before the first
+    attempt after the blackout are kept for the replay."""
+    from slam_framework_torch.io import checkpoint
+
     gray = torch.full_like(pairs[0], 90)
     feed = [gray if f in BLACKOUT else pairs[f] for f in range(N_FRAMES)]
     system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev)
@@ -623,9 +667,19 @@ def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, 
     inner = reloc.try_relocalize
 
     def recording(fd_host):
+        fid = system.tracker.frame_id
+        snap = None
+        if fid > BLACKOUT[-1] and "snap" not in tried:
+            t0 = time.perf_counter()
+            checkpoint.save_map(snap_path, system.arena, system.tracker.records, system.vocab)
+            snap = tried["snap"] = {"path": snap_path, "gen": reloc._gen.get_state(), "frame": fid,
+                                    "fd": {k: v.copy() for k, v in fd_host.items()}, "pair": feed[fid],
+                                    "save_s": time.perf_counter() - t0}
         got = inner(fd_host)
-        steps = [{k: (len(v) if k == "rows" else v) for k, v in step.items()} for step in reloc.last_report]
-        tried.setdefault("reports", []).append((system.tracker.frame_id, steps))
+        steps = _steps(reloc.last_report)
+        tried.setdefault("reports", []).append((fid, steps))
+        if snap is not None:
+            snap["live"] = (None if got is None else (int(got.kf), int(got.n_inliers)), steps)
         if got is not None and "fd" not in tried:
             tried["fd"] = fd_host
         return got
@@ -649,13 +703,15 @@ def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, 
     closer = system.loop_closer
     timers = system.tracker.timers.summary()
     rl = timers.get("relocalize", {"total_ms": float("nan"), "count": 0})
+    snap_ms = 1e3 * tried.get("snap", {}).get("save_s", 0.0)
     print(f"blackout run (frames {BLACKOUT[0]}-{BLACKOUT[-1]} blank): {N_FRAMES} frames in {wall:.3f} s = "
           f"{N_FRAMES / wall:.3f} frames/s; lost {len(lost)} frames {lost} (reference on the CPU: {REF_LOST}, bound "
           f"{REF_LOST + SYNC}); relocalized: "
           + (", ".join(f"frame {e['frame_id']} against keyframe {e['reloc_kf']} with {e['inliers']} inliers"
                        for e in events) or "never")
-          + f"; {reloc.n_attempts} attempts, {rl['total_ms']:.1f} ms in all = "
-          f"{rl['total_ms'] / max(rl['count'], 1):.1f} ms per attempt (front-end included); resets {stats['resets']}; "
+          + f"; {reloc.n_attempts} attempts, {rl['total_ms']:.1f} ms in all, {snap_ms:.1f} ms of it saving the replay's "
+          f"snapshot, so {(rl['total_ms'] - snap_ms) / max(rl['count'], 1):.1f} ms per attempt (front-end included); "
+          f"resets {stats['resets']}; "
           f"keyframes {stats['keyframes']}, loops closed {stats['loops_closed']} (edges "
           f"{[(int(a), int(b)) for a, b, _ in closer.loop_edges]}, {closer.n_sim3_attempts} Sim3 attempts), last "
           f"report {json.dumps(closer.last_report, default=float)}; ATE over the {n_tracked} tracked frames "
@@ -686,7 +742,62 @@ def _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, 
     ms = timing.event_ms(lambda: inner(fd), reps=3)
     print(f"one relocalization attempt (frame {after[0]['frame_id']}'s features against the final map, front-end "
           f"excluded): {ms:.2f} ms between events, {kernels} kernels + {copies} copies/memsets", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "snap": tried["snap"]}
+
+
+def _reloc_replay(torch, dev, cfg, SlamSystem, snap: dict) -> None:
+    """Phase 7, replay: the first attempt after the blackout again, from the map
+    saved just before it, on the card and on the CPU, from the live attempt's
+    features and from the frame's pixels through each device's own front-end."""
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        for source in ("features", "pixels"):
+            system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=device)
+            system.load_map(snap["path"])
+            tracker = system.tracker
+            reloc = tracker.relocalizer
+            reloc._gen.set_state(snap["gen"])
+            t0 = time.perf_counter()
+            if source == "features":
+                got = reloc.try_relocalize(snap["fd"])
+                result = None if got is None else (int(got.kf), int(got.n_inliers))
+                pose = None if got is None else got.pose
+            else:
+                tracker.frame_id = snap["frame"]
+                tracker._track_lost(snap["pair"].to(device), 0.0)
+                rec = tracker.records[-1]
+                event = tracker.metrics.records[-1] if not rec.lost else {}
+                result = None if rec.lost else (int(rec.ref_kf), int(event.get("inliers", -1)))
+                pose = rec.pose
+            out[(name, source)] = (result, _steps(reloc.last_report), time.perf_counter() - t0, pose)
+    live_result, live_steps = snap["live"]
+    print(f"relocalization replay of frame {snap['frame']} (the map saved just before the live attempt, the same "
+          f"generator state; result = (keyframe, inliers); per candidate: BoW matches, RANSAC / motion-only BA / "
+          f"guided-retry inliers): live on the card {live_result} {json.dumps(live_steps)}", flush=True)
+    for (name, source), (result, steps, secs, _) in out.items():
+        print(f"  replay on the {name} from the {source}: {result} {json.dumps(steps)} ({secs:.2f} s)", flush=True)
+
+    def first_difference(a, b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            for key in ("kf", "rows", "ransac", "pose_opt", "guided"):
+                if x.get(key) != y.get(key):
+                    return f"candidate {i} (keyframe {x.get('kf')}), stage {key}: {x.get(key)} vs {y.get(key)}"
+        return None if len(a) == len(b) else f"{len(a)} vs {len(b)} candidates"
+
+    for a, b in ((("card", "features"), ("cpu", "features")), (("card", "pixels"), ("cpu", "pixels")),
+                 (("card", "features"), ("card", "pixels"))):
+        diff = first_difference(out[a][1], out[b][1])
+        pa, pb = out[a][3], out[b][3]
+        poses = ("" if pa is None or pb is None else
+                 f"; the poses differ by {float(np.abs(pa[:3, :3] - pb[:3, :3]).max()):.2e} in R and "
+                 f"{float(np.abs(pa[:3, 3] - pb[:3, 3]).max()):.2e} m in t")
+        print(f"  {a[0]} from the {a[1]} vs {b[0]} from the {b[1]}: "
+              + ("the same candidates and counts at every stage" if diff is None else f"first part at {diff}")
+              + poses, flush=True)
+    diff = first_difference(live_steps, out[("card", "features")][1])
+    print("  live vs the card's replay from the features: "
+          + ("the same at every stage (the snapshot holds the state the attempt used)" if diff is None
+             else f"first part at {diff}"), flush=True)
 
 
 def _resume_run(torch, dev, cfg, world, pairs, fast_cuda, trajectory, SlamSystem, path: str, save_s: float) -> dict:
@@ -753,6 +864,96 @@ def _resume_run(torch, dev, cfg, world, pairs, fast_cuda, trajectory, SlamSystem
     return {"launches": launches}
 
 
+def _sensor_run(torch, dev, cfg, world, frames, sensor: str, n_frames: int, fast_cuda, trajectory,
+                SlamSystem) -> dict:
+    """Phases 9 and 10: the bench frames through an RGB-D or a monocular SlamSystem.
+    frames[f] is (left, right, depth) on the host."""
+    scfg = dataclasses.replace(cfg, sensor=sensor)
+    ref = REF_RGBD if sensor == "rgbd" else REF_MONO
+
+    def feed(system, f):
+        left, _, depth = frames[f]
+        if sensor == "rgbd":
+            system.track_rgbd(left, depth, world.timestamps[f])
+        else:
+            system.track_monocular(left, world.timestamps[f])
+
+    warm = SlamSystem(scfg, sync_every=SYNC, device=dev)
+    for f in range(SYNC + 1):
+        feed(warm, f)
+    warm.shutdown()
+    del warm
+    system = SlamSystem(scfg, sync_every=SYNC, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in range(n_frames):
+        feed(system, f)
+    system.tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = system.shutdown()
+    records = system.tracker.records
+    tracked = [i for i, r in enumerate(records) if not r.lost]
+    fids = [records[i].frame_id for i in tracked]
+    lost = [r.frame_id for r in records if r.lost]
+    untracked = n_frames - len(tracked)
+    align = "se3" if sensor == "rgbd" else "sim3"
+    est = system.frame_poses()[tracked]
+    if not np.isfinite(est).all():
+        _fail(f"{sensor} run: non-finite poses")
+    ate = trajectory.ate_rmse(est, world.poses[fids], align=align)
+    closer = system.loop_closer
+    mapper = stats["mapper"]
+    init = getattr(system.tracker, "last_init", None)
+    name = "RGB-D" if sensor == "rgbd" else "monocular"
+    print(f"{name} run: {n_frames} frames in {wall:.3f} s = {n_frames / wall:.3f} frames/s, "
+          + (f"initialized at frame {init['frame']} against frame {init['ref_frame']} with {init['points']} points, "
+             f"median depth {init['median_depth']:.6f} after it; " if init else "")
+          + f"ATE ({align.upper()}-aligned, over the {len(tracked)} tracked frames) {ate:.4f} m (reference on the "
+          f"CPU {ref['ate_m']} m, bound {2 * ref['ate_m']} m), lost {len(lost)} {lost}, untracked {untracked}, "
+          f"resets {stats['resets']}, keyframes {stats['keyframes']} (+ {mapper['culled_keyframes']} culled), map "
+          f"points {stats['map_points']}, BAs applied {mapper['ba_applied']} / aborted {stats['ba_aborts']}, "
+          f"triangulated points {mapper['triangulated']}, loops closed {stats['loops_closed']} (edges "
+          f"{[(int(a), int(b)) for a, b, _ in closer.loop_edges]}, {closer.n_sim3_attempts} Sim3 attempts), last "
+          f"report {json.dumps(closer.last_report, default=float)}; fast_nms launches {launches}, peak device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    print(f"{name} run stage timers: {json.dumps(system.tracker.timers.summary())}", flush=True)
+    missed = len(lost) if sensor == "rgbd" else untracked
+    allowed = (ref["lost"] if sensor == "rgbd" else ref["untracked"]) + SYNC
+    if missed > allowed:
+        _fail(f"{name} run: {missed} {'lost' if sensor == 'rgbd' else 'untracked'} frames, more than {allowed}")
+    if stats["loops_closed"] < ref["loops"]:
+        _fail(f"{name} run: {stats['loops_closed']} loops closed, fewer than the reference's {ref['loops']}")
+    if not ate <= 2 * ref["ate_m"]:
+        _fail(f"{name} run: ATE {ate} m above the bound {2 * ref['ate_m']} m")
+    if launches != n_frames:
+        _fail(f"{name} run: fast_nms launches {launches} != one per frame over {n_frames} frames")
+    if not _state_on_card(system):
+        _fail(f"{name} run: a tracker state tensor is off the CUDA device")
+    return {"launches": launches}
+
+
+_WORLD = None  # the bench world of a render worker
+
+
+def _render_init() -> None:
+    global _WORLD
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.tools.track_bench_world import bench_world
+
+    _WORLD = bench_world(SlamConfig(), num_frames=N_FRAMES)
+
+
+def _render(f: int):
+    """Bench frame f: the left image and its depth from one ray cast, the right image."""
+    left, depth = _WORLD.rgbd_pair(f)
+    return left, _WORLD.render(f, right=True), depth
+
+
 def main() -> None:
     import torch
 
@@ -760,13 +961,15 @@ def main() -> None:
         _fail("torch.cuda.is_available() is False")
     from slam_framework_torch import BUILD_DIR, native
     from slam_framework_torch.config import SlamConfig
-    from slam_framework_torch.io import synthetic, trajectory
+    from slam_framework_torch.io import trajectory
     from slam_framework_torch.ops import fast_cuda, pyramid
     from slam_framework_torch.system import SlamSystem
+    from slam_framework_torch.tools.track_bench_world import bench_world
     from slam_framework_torch.utils import cuda_timing as timing
 
     print(timing.card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -778,23 +981,27 @@ def main() -> None:
     # ---- 3. kernel vs plain on the card
     cfg = SlamConfig()
     t0 = time.perf_counter()
-    world = synthetic.make_world(
-        num_frames=330, cam=cfg.camera, seed=3, speed=1.0,
-        yaw_rate=2.0 * np.pi / 300.0, num_landmarks=22000,
-    )
-    pairs_np = [world.stereo_pair(f) for f in range(N_FRAMES)]
-    print(f"world: {N_FRAMES} pairs rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+    world = bench_world(cfg, num_frames=N_FRAMES)
+    with multiprocessing.get_context("spawn").Pool(RENDER_PROCS, initializer=_render_init) as pool:
+        frames = pool.map(_render, range(N_FRAMES), chunksize=5)
+    pairs_np = [(left, right) for left, right, _ in frames]
+    print(f"world: {N_FRAMES} frames rendered (left image + its depth, right image) in "
+          f"{time.perf_counter() - t0:.1f} s by {RENDER_PROCS} processes", flush=True)
 
-    levels = []
-    for img in pairs_np[0]:
-        levels += pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(),
-                                        cfg.orb.num_levels, cfg.orb.scale_factor)
+    def level_images(img):
+        return pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(), cfg.orb.num_levels, cfg.orb.scale_factor)
+
+    levels = level_images(pairs_np[0][0]) + level_images(pairs_np[0][1])
+    # the 8 level images an RGB-D frame (bench frame 0) and a monocular frame
+    # (bench frame 1, the reference's init frame) hand to the kernel
+    levels_rgbd, levels_mono = level_images(pairs_np[0][0]), level_images(pairs_np[1][0])
     rng = np.random.default_rng(7)
     odd = [torch.from_numpy(rng.integers(0, 256, s).astype(np.float32)).to(dev)
            for s in ((75, 140), (7, 5), (200, 17), (61, 99))]
     odd[-1] = odd[-1] * 0.37 - 47.3  # values of both signs that are not whole numbers
     max_err = 0.0
-    for what, imgs in (("frame 0, 8 levels x 2 images", levels), ("odd shapes", odd)):
+    for what, imgs in (("frame 0, 8 levels x 2 images", levels), ("RGB-D frame 0, 8 levels", levels_rgbd),
+                       ("monocular frame 1, 8 levels", levels_mono), ("odd shapes", odd)):
         fast_cuda.launches = 0
         got = fast_cuda.fast_nms_strength_levels(imgs)
         torch.cuda.synchronize()
@@ -831,6 +1038,23 @@ def main() -> None:
     )
     print("fast_nms one level image per launch, device us: "
           + ", ".join(f"{tuple(t.shape)} {us:.2f}" for t, us in zip(levels, level_us)), flush=True)
+
+    def frame8_call():
+        return fast_cuda.fast_nms_strength_levels(levels_rgbd)
+
+    pixels8 = sum(t.numel() for t in levels_rgbd)
+    bound8, bound8_by = timing.bound_ms(pixels8 * fast_cuda.BYTES_PER_PIXEL, pixels8 * fast_cuda.OPS_PER_PIXEL)
+    kernel8_ms = timing.device_ms(frame8_call)
+    flushed8_ms = timing.device_ms_flushed(frame8_call, timing.l2_flusher(dev))
+    host8_ms = timing.host_ms(frame8_call)
+    plain8_ms = timing.device_ms(lambda: [fast_cuda.fast_nms_strength_plain(t) for t in levels_rgbd], calls=5)
+    print(
+        f"fast_nms per RGB-D / monocular frame ({len(levels_rgbd)} images, {pixels8} px, one launch): device "
+        f"{kernel8_ms:.5f} ms L2-warm, {flushed8_ms:.5f} ms L2-flushed; bound {bound8:.5f} ms by {bound8_by} "
+        f"({100 * bound8 / kernel8_ms:.1f}% of it reached); host {host8_ms:.5f} ms per call; plain "
+        f"{plain8_ms:.4f} ms device",
+        flush=True,
+    )
 
     # ---- 4. mapper programs on the card against the CPU
     _mapper_programs(torch, dev, cfg, world, pairs_np, timing)
@@ -929,11 +1153,23 @@ def main() -> None:
     system.save_map(map_path)
     save_s = time.perf_counter() - t0
 
-    # ---- 7. blackout run
-    blackout = _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem)
+    # ---- 7. blackout run, and the replay of its first attempt after the blackout
+    blackout = _blackout_run(torch, dev, cfg, world, pairs, timing, fast_cuda, trajectory, SlamSystem,
+                             os.path.join(BUILD_DIR, "smoke_blackout_map.npz"))
+    _reloc_replay(torch, dev, cfg, SlamSystem, blackout["snap"])
 
     # ---- 8. resume run
     resume = _resume_run(torch, dev, cfg, world, pairs, fast_cuda, trajectory, SlamSystem, map_path, save_s)
+    del pairs
+
+    # ---- 9. RGB-D run
+    rgbd = _sensor_run(torch, dev, cfg, world, frames, "rgbd", N_FRAMES, fast_cuda, trajectory, SlamSystem)
+
+    # ---- 10. monocular run
+    if MONO_FRAMES < N_FRAMES:
+        print(f"monocular run: the first {MONO_FRAMES} of the {N_FRAMES} frames", flush=True)
+    mono = _sensor_run(torch, dev, cfg, world, frames, "monocular", MONO_FRAMES, fast_cuda, trajectory, SlamSystem)
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms_strength",
@@ -951,6 +1187,13 @@ def main() -> None:
         "host_ms": host_ms,
         "launches_blackout_run": blackout["launches"],
         "launches_resume_run": resume["launches"],
+        "launches_rgbd_run": rgbd["launches"],
+        "launches_mono_run": mono["launches"],
+        "ms_8_images": kernel8_ms,
+        "ms_8_images_l2_flushed": flushed8_ms,
+        "plain_ms_8_images": plain8_ms,
+        "bound_ms_8_images": bound8,
+        "bound_by_8_images": bound8_by,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -108,6 +108,14 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(so3_exp(w), t)
 
 
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE3 logarithm: (..., 4, 4) -> (..., 6) twist (omega, upsilon)."""
+    R, t = mat_to_rt(T)
+    w = so3_log(R)
+    u = torch.linalg.solve_ex(so3_left_jacobian(w), t[..., None])[0][..., 0]
+    return torch.cat([w, u], dim=-1)
+
+
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) from (..., 3, 3) and (..., 3)."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])

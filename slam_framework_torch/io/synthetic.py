@@ -19,7 +19,8 @@ Rendering is host-side numpy (a handful of vectorized surface
 intersections + mip-mapped texture lookups per frame); it feeds the same
 entry points a KITTI loader would.
 
-Port of slam_framework_tpu/io/synthetic.py (`make_world` only) without cv2:
+Port of slam_framework_tpu/io/synthetic.py (`make_world`, the stereo pair
+and the RGB-D pair `rgbd_pair` / `render_depth`) without cv2:
 the bilinear remap, bicubic and area resizes and the filled ellipse / box
 stamps are written out in numpy after OpenCV's definitions. The random
 number stream is consumed in the same order, so poses, timestamps and stamp
@@ -98,6 +99,17 @@ class SyntheticWorld:
 
     def stereo_pair(self, frame: int) -> Tuple[np.ndarray, np.ndarray]:
         return self.render(frame, False), self.render(frame, True)
+
+    def render_depth(self, frame: int) -> np.ndarray:
+        """Registered depth map of the left camera (RGB-D sensor emulation): the
+        exact ray-cast camera-frame z per pixel, 0 where nothing is hit."""
+        _, depth = self._raycast(self.poses[frame])
+        return depth
+
+    def rgbd_pair(self, frame: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(gray, depth) of the left camera from ONE ray cast: the gray image is
+        `render(frame)`'s, the depth `render_depth(frame)`'s."""
+        return self._raycast(self.poses[frame])
 
     # ------------------------------------------------------------------ ray casting
 

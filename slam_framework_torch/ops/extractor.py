@@ -1,6 +1,6 @@
 """ORB extractor: pyramid -> FAST+NMS -> uniform select -> orientation -> rBRIEF.
 
-Port of slam_framework_tpu/ops/extractor.py (`_extract_from_pyramid`). All
+Port of slam_framework_tpu/ops/extractor.py (`_extract`, `_extract_from_pyramid`). All
 outputs are fixed-shape (max_features slots + validity mask). `xy` is in
 level-0 pixels, `octave` is the pyramid level.
 
@@ -46,6 +46,13 @@ class OrbExtractor:
         self.per_level = pyramid.features_per_level(
             self.max_features, cfg.num_levels, cfg.scale_factor
         )
+
+    def extract(self, img: torch.Tensor) -> Features:
+        """Features of one (H, W) grayscale image, uint8 or fp32: its pyramid and
+        blurred pyramid, then `extract_from_pyramid` (one FAST+NMS launch)."""
+        img = img.to(torch.float32).contiguous()
+        nl, sf = self.cfg.num_levels, self.cfg.scale_factor
+        return self.extract_from_pyramid(pyramid.build_pyramid(img, nl, sf), pyramid.build_blurred_pyramid(img, nl, sf))
 
     def extract_from_pyramid(self, levels: List[torch.Tensor], blurred: List[torch.Tensor],
                              nms_maps: Optional[Sequence[torch.Tensor]] = None) -> Features:

@@ -14,9 +14,12 @@ triangulation before BA, BA results first in first out. The launches return
 before the device has finished, so the host goes on while the card works.
 The host parts are numpy on the arena, as in the reference.
 
-Stereo only, as the port's tracker is: the reference's synchronous monocular
-branch is not carried, nor its deferral queue (the port's tracker runs the
-heavy stage inline, in the order of the reference's serial path).
+Monocular keyframes get no points but by triangulation, so for them the stage
+is synchronous, as in the reference: every pending result is written back when
+the keyframe arrives, its triangulation and fusion are applied at once, and the
+triangulation's minimum baseline is 0.01 (scale-free map units) in place of the
+stereo baseline. The reference's deferral queue is not carried (the port's
+tracker runs the heavy stage inline, in the order of the reference's serial path).
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ class LocalMapper:
         self._ba_pendings = []   # [dict] in-flight local BAs awaiting apply
         self._tri_pending = []   # [(kf, nbr_ids, device result)] awaiting apply
         self._fuse_pending = []  # [(nbr_ids, pids_pad, device result)] awaiting apply
+        # monocular: the stage runs synchronously (see the module docstring)
+        self._sync = cfg.sensor == "monocular"
         self.ba_aborts = 0  # BA results discarded (newer keyframe, or divergence)
         self.n_finalized = 0  # finalize() calls: a caller can tell that its prefetched results are spent
         # running totals over the mapper's life, for run statistics
@@ -138,14 +143,15 @@ class LocalMapper:
             # Each pending is applied EXACTLY once: the fuse dispatch that
             # apply_pending_triangulation appends must never be consumed with
             # this drain's (older) prefetched arrays, hence fuse strictly
-            # before tri, and no re-application afterwards.
-            if prefetched_fuse is not None or tf_mode == "block":
+            # before tri, and no re-application afterwards. Monocular applies
+            # everything here, fetched or not.
+            if prefetched_fuse is not None or tf_mode == "block" or self._sync:
                 self.apply_pending_fuse(prefetched=prefetched_fuse)
             if self.cfg.mapping.triangulate_new_points and (
-                prefetched_tri is not None or tf_mode == "block"
+                prefetched_tri is not None or tf_mode == "block" or self._sync
             ):
                 self.apply_pending_triangulation(prefetched=prefetched_tri)
-            if prefetched_ba is not None or ba_mode == "block":
+            if prefetched_ba is not None or ba_mode == "block" or self._sync:
                 self.flush_ba(prefetched=prefetched_ba)
             elif self._ba_pendings:
                 self.ba_aborts += len(self._ba_pendings)
@@ -160,7 +166,9 @@ class LocalMapper:
         if self.cfg.mapping.triangulate_new_points:
             with self.timers.time("mapper/triangulate"):
                 pending = self._dispatch_triangulation(kf)
-                if pending is not None:
+                if pending is not None and self._sync:
+                    self._apply_triangulation(kf, *pending)
+                elif pending is not None:
                     self._tri_pending.append((kf,) + pending)
         with self.timers.time("mapper/ba_dispatch"):
             self._local_ba(kf)
@@ -199,9 +207,8 @@ class LocalMapper:
         # free features only (triangulation creates new geometry)
         cand = arena.kf_feat_valid[idxs] & (arena.kf_point_idx[idxs] < 0)
         cand[1:] &= cand_on[:, None]
-        res = self._triangulate(
-            self._put(idxs), self._put(arena.kf_pose[idxs]), self._put(cand), float(cfg.camera.baseline)
-        )
+        min_baseline = 0.01 if self._sync else float(cfg.camera.baseline)
+        res = self._triangulate(self._put(idxs), self._put(arena.kf_pose[idxs]), self._put(cand), min_baseline)
         return nbr_ids, res
 
     def tri_handles(self):
@@ -285,10 +292,13 @@ class LocalMapper:
         # covisible keyframes — adds confirming observations (raising obs counts
         # toward the >=3 the keyframe policy and culling reason about) and merges
         # duplicate landmarks. In flight like BA/triangulation (fetched by the
-        # tracker's drain, applied at the next keyframe).
+        # tracker's drain, applied at the next keyframe); applied at once for
+        # monocular, whose young map needs fresh observation counts.
         with self.timers.time("mapper/fuse_neighbors"):
             pending = self._dispatch_fuse(kf)
-            if pending is not None:
+            if pending is not None and self._sync:
+                self._apply_fuse(*pending)
+            elif pending is not None:
                 self._fuse_pending.append(pending)
 
     # ------------------------------------------------------------------ neighbor fusion

@@ -1,9 +1,13 @@
-"""Stereo tracking stage: device-resident tracking state + chunked host bookkeeping.
+"""Stereo / RGB-D tracking stage: device-resident tracking state + chunked host bookkeeping.
 
 Port of the tracking slice of slam_framework_tpu/pipeline/tracker.py: stereo
 initialisation, per-frame motion-model / reference-fallback / local-map
 tracking with pose optimisation, the keyframe decision and creation with new
 points from stereo depth, the local-block rebuild and the trajectory export.
+The sensor picks the front-end (`_make_frontend`): a stereo frame is a (2, H, W)
+uint8 pair, an RGB-D frame a (2, H, W) float32 (gray, depth) pair, and
+pipeline/mono_tracker.py's monocular frame one (1, H, W) uint8 image; the rest
+of the machine is shared, and a frame without depth spawns no depth points.
 
 Frames are processed in chunks of `sync_every`: the front-end and the
 tracking core run frame by frame on the device (the reference's `lax.map` +
@@ -54,7 +58,7 @@ from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry import se3
 from slam_framework_torch.map.arena import MapArena
 from slam_framework_torch.pipeline import track_ops
-from slam_framework_torch.pipeline.frame import FrameData, StereoFrontend
+from slam_framework_torch.pipeline.frame import FrameData, RgbdFrontend, StereoFrontend
 from slam_framework_torch.pipeline.local_mapper import LocalMapper
 from slam_framework_torch.utils.observability import MetricsLog, StageTimers, trace_span
 
@@ -102,13 +106,14 @@ class FrameRecord:
 
 class StereoTracker:
     MAX_KFS_PER_CHUNK = 1  # keyframe budget per chunk, scaled with sync_every
+    frontend_images = 2    # images per staged frame: (left, right) or (gray, depth)
 
     def __init__(self, cfg: SlamConfig, arena: Optional[MapArena] = None, sync_every: int = 4,
                  device: Optional[torch.device] = None):
         self.cfg = cfg
         # None: the first CUDA device, or an error when there is none
         self.device = resolve_device(device)
-        self.frontend = StereoFrontend(cfg)
+        self.frontend = self._make_frontend()
         self.K = self.frontend.K
         self.arena = arena or MapArena.create(cfg.capacity, cfg.capacity.max_features)
         self.state = TrackingState.NO_IMAGES_YET
@@ -131,8 +136,17 @@ class StereoTracker:
         self._block: Optional[track_ops.PointBlock] = None
         self._block_ids: Optional[np.ndarray] = None   # (P,) int32 — point id per block slot
         self._block_pos_host: Optional[np.ndarray] = None
-        self._buf = []                 # buffered (pair, frame_id, timestamp) awaiting a chunk
+        self._buf = []                 # buffered (frame, frame_id, timestamp) awaiting a chunk
         self._pending_remap = None     # pre-rebuild block ids awaiting the device-state remap
+
+    def _make_frontend(self):
+        if self.cfg.sensor == "rgbd":
+            return RgbdFrontend(self.cfg)
+        return StereoFrontend(self.cfg)
+
+    def _current_sync(self) -> int:
+        """Frames per chunk; the monocular tracker shortens it while the map is young."""
+        return self.sync_every
 
     # ------------------------------------------------------------------ device program
 
@@ -234,9 +248,9 @@ class StereoTracker:
         summaries, packs, descs = [], [], []
         state = self._dstate
         with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
-            for pair, _fid, _ts in batch:
+            for frame, _fid, _ts in batch:
                 with trace_span("tracker/frontend"):
-                    fd = self.frontend(pair[0], pair[1])
+                    fd = self.frontend(*frame)
                 with trace_span("tracker/track_core"):
                     state, summary, pack, desc, v, f = self._track_core(state, fd, block)
                 summaries.append(summary)
@@ -266,28 +280,39 @@ class StereoTracker:
     # ------------------------------------------------------------------ main entry
 
     def _to_pair(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.stack([np.asarray(left), np.asarray(right)])).to(self.device)
+        """Host images -> one staged frame on the device; gray (uint8) and depth
+        (float) share float32 in an RGB-D frame."""
+        dtype = np.float32 if self.cfg.sensor == "rgbd" else None
+        return torch.from_numpy(np.stack([np.asarray(left, dtype), np.asarray(right, dtype)])).to(self.device)
 
     def track(self, left: np.ndarray, right: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
-        """Feed one stereo pair from HOST arrays. Returns the latest synced pose
-        (lags up to sync_every frames) or None. Call flush() to drain at end."""
+        """Feed one stereo pair, or (gray, depth) in RGB-D mode, from HOST arrays.
+        Returns the latest synced pose (lags up to sync_every frames) or None.
+        Call flush() to drain at end."""
         return self.track_device(self._to_pair(left, right), timestamp)
 
-    def track_device(self, pair: torch.Tensor, timestamp: float) -> Optional[np.ndarray]:
-        """Feed one stereo pair already on the tracker's device: (2, H, W) uint8."""
+    def track_device(self, frame: torch.Tensor, timestamp: float) -> Optional[np.ndarray]:
+        """Feed one frame already on the tracker's device: a (2, H, W) uint8
+        stereo pair, for RGB-D a (2, H, W) float32 (gray, depth) pair, for the
+        MonoTracker one (1, H, W) uint8 image."""
+        if (frame.dim() != 3 or frame.shape[0] != self.frontend_images
+                or (self.cfg.sensor == "rgbd" and frame.dtype != torch.float32)):
+            raise ValueError(f"a {self.cfg.sensor} frame is {self.frontend_images} images of (H, W)"
+                             + (" in float32" if self.cfg.sensor == "rgbd" else "")
+                             + f", not {tuple(frame.shape)} {frame.dtype}")
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            ok = self._initialize(pair, timestamp)
+            ok = self._initialize(frame, timestamp)
             self.state = TrackingState.OK if ok else TrackingState.NOT_INITIALIZED
             self.frame_id += 1
             return self.records[-1].pose if ok else None
         if self.state == TrackingState.LOST:
             with self.timers.time("relocalize"), trace_span("tracker/relocalize"):
-                self._track_lost(pair, timestamp)
+                self._track_lost(frame, timestamp)
             self.frame_id += 1
             return self.records[-1].pose
-        self._buf.append((pair, self.frame_id, timestamp))
+        self._buf.append((frame, self.frame_id, timestamp))
         self.frame_id += 1
-        if len(self._buf) >= self.sync_every:
+        if len(self._buf) >= self._current_sync():
             self._run_chunk()
         return self.records[-1].pose if self.records else None
 
@@ -369,7 +394,7 @@ class StereoTracker:
             self._follow_reference_keyframe(packs[last_tracked], block_ids)
         if self.state == TrackingState.LOST:
             # drop buffered work — it descends from the lost state
-            for (_pair, fid2, ts2) in self._buf:
+            for (_frame, fid2, ts2) in self._buf:
                 self.records.append(FrameRecord(fid2, ts2, None, True, self.ref_kf))
             self._buf = []
 
@@ -398,12 +423,12 @@ class StereoTracker:
 
     # ------------------------------------------------------------------ relocalization
 
-    def _track_lost(self, pair: torch.Tensor, timestamp) -> None:
+    def _track_lost(self, frame: torch.Tensor, timestamp) -> None:
         """One relocalization attempt (Tracker::Relocalization, tracker.cpp:826-991).
         The front-end runs on the device and its feature block comes back in one
         read; on success the device state is re-seeded from the relocalized
         pose against the rebuilt block, and chunked tracking resumes."""
-        fd = self.frontend(pair[0], pair[1])
+        fd = self.frontend(*frame)
         f32 = torch.float32
         pack = torch.stack([fd.xy[:, 0], fd.xy[:, 1], fd.u_right, fd.octave.to(f32), fd.angle,
                             fd.valid.to(f32)], dim=-1)
@@ -471,10 +496,10 @@ class StereoTracker:
 
     # ------------------------------------------------------------------ init / keyframes
 
-    def _initialize(self, pair: torch.Tensor, timestamp) -> bool:
+    def _initialize(self, frame: torch.Tensor, timestamp) -> bool:
         """StereoInitialization (tracker.cpp:249-295): first keyframe + a point
-        per stereo feature; builds the device state and the local block."""
-        fd = self.frontend(pair[0], pair[1])
+        per stereo (or RGB-D) feature; builds the device state and the local block."""
+        fd = self.frontend(*frame)
         host = {k: getattr(fd, k).cpu().numpy()
                 for k in ("xy", "angle", "octave", "desc", "valid", "u_right", "depth")}
         host["desc"] = host["desc"].view(np.uint32)

@@ -1,6 +1,7 @@
-"""Track the bench world with the port's stereo SlamSystem and print what came out.
+"""Track the bench world with the port's SlamSystem and print what came out.
 
     python -m slam_framework_torch.tools.track_bench_world --frames 330 --device cpu
+    python -m slam_framework_torch.tools.track_bench_world --sensor rgbd --device cpu
 
 The world is bench.py's (seed 3, speed 1.0, yaw 2*pi/300, 22,000 landmarks) at
 `SlamConfig()` defaults (1241x376, 2000 features, 8 levels, default
@@ -16,6 +17,12 @@ and the relocalizer must recover it; the line then also carries the lost
 frames, the frame tracked again after the blackout with its relocalization
 event and the ATE over the tracked frames alone (`chip_smoke.py`'s phase 7
 bound is twice that on the CPU).
+`--sensor rgbd` feeds the left image and its ray-cast depth (`rgbd_pair`),
+`--sensor monocular` the left image alone (the world of tools/bench_mono.py); the
+line then carries the frames without a tracked pose, the monocular
+initialization and the ATE over the tracked frames, SE3-aligned for RGB-D and
+Sim3-aligned for monocular, whose scale is free
+(`tools/ref_sensor_bench_world.py` prints the reference's on the same pixels).
 """
 
 from __future__ import annotations
@@ -37,6 +44,36 @@ def bench_world(cfg: SlamConfig, num_frames: int = 330):
         num_frames=num_frames, cam=cfg.camera, seed=3, speed=1.0,
         yaw_rate=2.0 * np.pi / 300.0, num_landmarks=22000,
     )
+
+
+def sensor_summary(system: SlamSystem, world, n_frames: int) -> dict:
+    """Frames without a tracked pose, the lost records, the monocular
+    initialization and the ATE over the tracked frames, aligned as the
+    sensor's scale allows."""
+    records = system.tracker.records
+    tracked = [i for i, r in enumerate(records) if not r.lost]
+    fids = [records[i].frame_id for i in tracked]
+    align = "sim3" if system.cfg.sensor == "monocular" else "se3"
+    est = system.frame_poses()[tracked]
+    return {
+        "untracked": n_frames - len(tracked),
+        "lost_frames": [r.frame_id for r in records if r.lost],
+        "first_tracked_frame": fids[0] if fids else None,
+        "mono_init": getattr(system.tracker, "last_init", None),
+        "align": align,
+        "ate_tracked_m": trajectory.ate_rmse(est, world.poses[fids], align=align) if len(fids) > 2 else None,
+    }
+
+
+def feed(system: SlamSystem, world, f: int, blackout) -> None:
+    """World frame f through the system's sensor entry point."""
+    sensor = system.cfg.sensor
+    if sensor == "rgbd":
+        system.track_rgbd(*world.rgbd_pair(f), world.timestamps[f])
+    elif sensor == "monocular":
+        system.track_monocular(world.render(f), world.timestamps[f])
+    else:
+        system.track_stereo(*frame_pair(world, f, blackout), world.timestamps[f])
 
 
 def parse_blackout(text: str):
@@ -95,31 +132,36 @@ def main() -> None:
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--no-loop-closer", action="store_true", help="tracking and mapping alone")
     ap.add_argument("--blackout", default="", help="A-B: frames A..B (inclusive) become a blank gray pair")
+    ap.add_argument("--sensor", default="stereo", choices=("stereo", "rgbd", "monocular"))
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
 
     cfg = SlamConfig()
     world = bench_world(cfg, num_frames=max(args.frames, 330))
-    system = SlamSystem(cfg, sensor="stereo", sync_every=args.sync, device=args.device,
+    system = SlamSystem(cfg, sensor=args.sensor, sync_every=args.sync, device=args.device,
                         place_recognition=not args.no_loop_closer)
     blackout = parse_blackout(args.blackout)
+    if blackout and args.sensor != "stereo":
+        ap.error("--blackout takes the stereo sensor")
     t0 = time.perf_counter()
     for f in range(args.frames):
-        system.track_stereo(*frame_pair(world, f, blackout), world.timestamps[f])
+        feed(system, world, f, blackout)
     stats = system.shutdown()
     wall = time.perf_counter() - t0
     est = system.frame_poses()
     records = system.tracker.records
     print(json.dumps({
-        "device": str(system.device), "frames": args.frames, "sync_every": args.sync,
+        "device": str(system.device), "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
         "wall_s_with_rendering": wall, "frames_per_s_with_rendering": args.frames / wall,
-        "ate_m": trajectory.ate_rmse(est, world.poses[: args.frames], align="se3"),
+        "ate_m": (trajectory.ate_rmse(est, world.poses[: args.frames], align="se3")
+                  if args.sensor != "monocular" and len(est) == args.frames else None),
         "lost": sum(1 for r in records if r.lost),
         "first_lost_frame": next((r.frame_id for r in records if r.lost), None),
         "stats": stats,
         **loop_summary(system),
         **(blackout_summary(system, world, blackout) if blackout else {}),
+        **(sensor_summary(system, world, args.frames) if args.sensor != "stereo" else {}),
         "timers": system.tracker.timers.summary(),
     }, default=float), flush=True)
 

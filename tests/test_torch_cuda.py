@@ -94,3 +94,39 @@ def test_system_takes_the_card_by_default():
     from slam_framework_torch.system import SlamSystem
 
     assert SlamSystem(SlamConfig()).device.type == "cuda"
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "monocular"])
+def test_rgbd_and_mono_frontends_launch_once_over_their_8_levels(sensor):
+    dev = _card()
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.ops import pyramid
+    from slam_framework_torch.pipeline.frame import MonoFrontend, RgbdFrontend
+
+    cfg = SlamConfig(sensor=sensor)
+    (img,) = _images([(cfg.camera.height, cfg.camera.width)], dev, seed=5)
+    levels = pyramid.build_pyramid(img, cfg.orb.num_levels, cfg.orb.scale_factor)
+    before = fast_cuda.launches
+    got = fast_cuda.fast_nms_strength_levels(levels)
+    assert fast_cuda.launches == before + 1
+    for g, lvl in zip(got, levels):
+        assert torch.equal(g, fast_cuda.fast_nms_strength_plain(lvl))
+    before = fast_cuda.launches
+    if sensor == "rgbd":
+        fd = RgbdFrontend(cfg)(img, torch.full_like(img, 7.5))
+        assert bool(((fd.depth == 7.5) == fd.valid).all())
+    else:
+        fd = MonoFrontend(cfg)(img.to(torch.uint8))
+        assert bool((fd.depth == -1).all())
+    torch.cuda.synchronize()
+    assert fast_cuda.launches == before + 1 and int(fd.valid.sum()) > 500
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "monocular"])
+def test_rgbd_and_mono_systems_take_the_card_by_default(sensor):
+    _card()
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.system import SlamSystem
+
+    system = SlamSystem(SlamConfig(sensor=sensor), place_recognition=False)
+    assert system.device.type == "cuda" and system.tracker.device.type == "cuda"

@@ -109,7 +109,7 @@ def test_refine_sim3_matches_reference(fix_scale):
         assert float(got[2]) == 1.0
 
 
-@pytest.mark.parametrize("seed,fix_scale", [(2, True), (3, True), (4, False)])
+@pytest.mark.parametrize("seed,fix_scale", [(2, True), (3, True), (4, False), (5, False)])
 def test_ransac_with_the_reference_s_index_sets(seed, fix_scale):
     sc = _two_view(seed, s_true=1.0 if fix_scale else 1.25)
     key = jax.random.PRNGKey(seed)
