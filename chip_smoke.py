@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the final line):
   3. kernel vs plain on the card: all 8 pyramid levels of both images of
      bench frame 0 in ONE launch, the 8 levels of one image as an RGB-D and a
      monocular frame hand them over (bench frames 0 and 1) in one launch each,
-     then images of odd shapes (75x140; 7x5;
+     the 4 levels of both 640x240 images of figure-eight frame 0 (phase 11's
+     list) in one launch, then images of odd shapes (75x140; 7x5;
      200x17, narrower than a tile and taller; signed values) in one launch, and
      the single-shape batch form; tolerance 0 (torch.equal). Then the
      kernel's time per stereo frame: device time from a CUDA graph of 50
@@ -101,9 +102,40 @@ Phases (any failure exits non-zero before the final line):
   10. monocular run: the left images through a monocular SlamSystem's
      `track_monocular` (tools/bench_mono.py's world). Prints the init frame and
      the map's median depth after it. Held like phase 9, with frames without a
-     tracked pose in place of lost frames and the Sim3-aligned ATE.
-The world is rendered by a pool of worker processes. Then the smoke's total
-time, one JSON line describing the kernel, and the device line last.
+     tracked pose in place of lost frames and the Sim3-aligned ATE;
+  11. figure-eight run: the two-loop world of the reference's TestMultiLoop
+     (`make_figure_eight_world`, seed 4, `lap_frames=200`: 450 frames, a lap
+     around circle A, one around the tangent circle B, back onto A) at that
+     test's configuration and sync (`multi_loop_config`: 640x240, 800 features,
+     4 levels, 192 keyframes; `sync_every=2`): at KITTI geometry or at
+     `sync_every=8` both packages lose this world (see F8_SYNC below). Rendered
+     by the render pool after phase 10; all 450 pairs through a stereo
+     SlamSystem with the viewer on (`use_viewer=True`: the MapPublisher thread
+     snapshots the map into its MemorySink). Prints frames/s beside phase 6's,
+     `dispatch` per frame, keyframes, the frame at which each loop closed, the
+     global BAs' outcomes, lost frames, ATE, peak memory and the time of one
+     snapshot of the final map (what the viewer's thread takes from the
+     tracker, ten times a second). Fails unless at least two loops close at frames more than 100
+     apart, lost frames are at most the reference's on the same pixels plus
+     sync_every, the ATE over the tracked frames is at most twice the port's
+     CPU figure, the run made one FAST launch per frame, snapshots were
+     published and the last one (taken after the flush) counts the arena's
+     keyframes, and every closure's global BA was merged or aborted by a newer
+     closure (the loop closer's `gba_log`);
+  12. KITTI-layout run: the first 60 bench frames written as a KITTI odometry
+     sequence (image_0 / image_1 grey PNGs from a small encoder kept here that
+     cycles the five filter types over the rows, times.txt, poses/00.txt) and
+     one frame as an RGB PNG with R, G and B different. io/png must give the
+     written images back bit-equal (the decode ms per image is printed) and
+     the RGB frame as libpng's grey, (9797 R + 19234 G + 3737 B) >> 15. Then
+     `slam_framework_torch.examples.main_stereo.track_sequence` (what the
+     runner's `run` calls after parsing its arguments) over the sequence with
+     config/kitti_stereo.json: 60 frames, 0 lost, ATE at most twice the port's
+     CPU figure over the same frames, 60 FAST launches; its JSON line is printed.
+The bench world is rendered by a pool of worker processes, which also renders
+the figure-eight world in phase 11 and is stopped at the end. Then the smoke's
+total time, one JSON line describing the kernel (with the launches of every
+run), and the device line last.
 """
 
 from __future__ import annotations
@@ -175,6 +207,28 @@ REF_RGBD = {"lost": 0, "loops": 1, "ate_m": 0.4484}
 REF_MONO = {"untracked": 0, "loops": 1, "ate_m": 0.4452}
 MONO_FRAMES = 330
 RENDER_PROCS = 8
+# figure-eight run, at the reference test's configuration and sync. The
+# reference SlamSystem on the same pixels on the CPU (`JAX_PLATFORMS=cpu python
+# tools/ref_figure_eight_world.py --geometry multi-loop --sync 2`) loses no frame
+# and closes loops at frames 206 and 388, ATE 0.2512 m; the port on the CPU
+# (`python -m slam_framework_torch.tools.track_bench_world --world figure8
+# --geometry multi-loop --sync 2 --device cpu`) loses none, closes loops at frames
+# 194 and 386 (keyframe 55 against 0, 108 against 56) with both global BAs merged,
+# ATE 0.2585 m: the bound is twice that. With --sync 8 the
+# reference loses 234 frames from frame 59; at KITTI geometry (--geometry kitti)
+# it loses 192 at --sync 8 and 18 with one loop at --sync 2.
+F8_SYNC = 2
+F8_REF_LOST = 0
+F8_ATE_CPU_M = 0.2585
+F8_ATE_BOUND_M = 2 * F8_ATE_CPU_M
+# KITTI-layout run: the first 60 bench frames as PNG files through the port's
+# stereo runner (SlamConfig.from_json(config/kitti_stereo.json) = SlamConfig(),
+# the runner's sync_every=4). Bound: twice the port's ATE over the same frames on
+# the CPU, 0.1306 m (`python -m slam_framework_torch.tools.track_bench_world
+# --frames 60 --sync 4 --device cpu`: 0 lost, 15 keyframes).
+KITTI_FRAMES = 60
+KITTI_ATE_CPU_M = 0.1306
+KITTI_ATE_BOUND_M = 2 * KITTI_ATE_CPU_M
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
@@ -937,15 +991,203 @@ def _sensor_run(torch, dev, cfg, world, frames, sensor: str, n_frames: int, fast
     return {"launches": launches}
 
 
-_WORLD = None  # the bench world of a render worker
+def _png_bytes(img: np.ndarray) -> bytes:
+    """A PNG file of a (H, W) grey or (H, W, 3) RGB uint8 image whose rows cycle
+    through the five filter types (None, Sub, Up, Average, Paeth). The port has
+    no encoder; this one writes the KITTI-layout sequence of phase 12."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, w * c).astype(np.int32)
+    left, up, up_left = (np.zeros_like(x) for _ in range(3))
+    left[:, c:], up[1:], up_left[1:, c:] = x[:, :-c], x[:-1], x[:-1, :-c]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    predictors = (np.zeros_like(x), left, up, (left + up) >> 1, paeth)
+    raw = b"".join(bytes([y % 5]) + ((x[y] - predictors[y % 5][y]) & 0xFF).astype(np.uint8).tobytes()
+                   for y in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def _kitti_run(torch, dev, world, pairs_np, fast_cuda, root: str) -> dict:
+    """Phase 12: the first KITTI_FRAMES bench frames written as a KITTI odometry
+    sequence (image_0 / image_1 grey PNGs, times.txt, poses/00.txt), decoded by
+    io/png bit-equal, then the port's stereo runner over it."""
+    import shutil
+
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.examples import main_stereo
+    from slam_framework_torch.io import kitti, png
+
+    shutil.rmtree(root, ignore_errors=True)
+    seq = os.path.join(root, "sequences", "00")
+    written = {}
+    for side, name in ((0, "image_0"), (1, "image_1")):
+        os.makedirs(os.path.join(seq, name))
+        for f in range(KITTI_FRAMES):
+            path = os.path.join(seq, name, f"{f:06d}.png")
+            with open(path, "wb") as fh:
+                fh.write(_png_bytes(pairs_np[f][side]))
+            written[path] = pairs_np[f][side]
+    np.savetxt(os.path.join(seq, "times.txt"), world.timestamps[:KITTI_FRAMES])
+    os.makedirs(os.path.join(root, "poses"))
+    np.savetxt(os.path.join(root, "poses", "00.txt"),
+               np.stack([np.linalg.inv(T.astype(np.float64))[:3, :].reshape(-1) for T in world.poses[:KITTI_FRAMES]]))
+    # one frame also as RGB with R != G != B: read as grey through libpng's formula
+    left, right = pairs_np[0]
+    rgb = np.dstack([left, right, (left // 2 + 64).astype(np.uint8)])
+    rgb_path = os.path.join(root, "rgb_000000.png")
+    with open(rgb_path, "wb") as fh:
+        fh.write(_png_bytes(rgb))
+
+    t0 = time.perf_counter()
+    png.imread_gray(rgb_path)  # builds the unfilter routine (g++) on first use
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad = [p for p, img in written.items() if not np.array_equal(png.imread_gray(p), img)]
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(written)
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    want_gray = ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+    rgb_ok = (np.array_equal(png.imread_gray(rgb_path), want_gray)
+              and np.array_equal(png.imread_unchanged(rgb_path), rgb[..., ::-1]))
+    distinct = float(np.mean((r != g) & (g != b) & (r != b)))
+    print(f"KITTI layout: {len(written)} grey PNGs of {left.shape[1]}x{left.shape[0]} written (filter types 0-4 "
+          f"cycled over the rows) and read back by io/png in {decode_ms:.3f} ms per image (routine built in "
+          f"{build_s:.2f} s): {len(written) - len(bad)} bit-equal; the RGB frame ({100 * distinct:.1f}% of its pixels "
+          f"with R, G, B all different) read as libpng's grey: {rgb_ok}", flush=True)
+    if bad:
+        _fail(f"io/png read {len(bad)} of the written PNGs differently, e.g. {bad[0]}")
+    if not rgb_ok:
+        _fail("io/png's grey of the RGB frame is not libpng's (9797 R + 19234 G + 3737 B) >> 15")
+
+    # the runner's own path after its argument parsing, as `run` calls it
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "kitti_stereo.json")
+    cfg = SlamConfig.from_json(config, sensor="stereo")
+    fast_cuda.launches = 0
+    system, report = main_stereo.track_sequence(cfg, kitti.load_sequence(seq), dev, os.path.join(root, "positions.txt"),
+                                                gt=kitti.load_ground_truth(root, "00"))
+    launches = fast_cuda.launches
+    lost = [r.frame_id for r in system.tracker.records if r.lost]
+    print(f"KITTI runner (main_stereo.track_sequence, as `python -m slam_framework_torch.examples.main_stereo "
+          f"{os.path.relpath(config)} <sequence> --gt-root <root> --seq 00` runs it): {json.dumps(report)}; lost {len(lost)} {lost}; ATE bound "
+          f"{KITTI_ATE_BOUND_M} m; fast_nms launches {launches}", flush=True)
+    if report["frames"] != KITTI_FRAMES or lost:
+        _fail(f"KITTI runner: {report['frames']} frames, lost {lost}")
+    if not report["ate_rmse_m"] <= KITTI_ATE_BOUND_M:
+        _fail(f"KITTI runner: ATE {report['ate_rmse_m']} m above the bound {KITTI_ATE_BOUND_M} m")
+    if launches != KITTI_FRAMES:
+        _fail(f"KITTI runner: fast_nms launches {launches} != one per frame over {KITTI_FRAMES} frames")
+    if not _state_on_card(system):
+        _fail("KITTI runner: a tracker state tensor is off the CUDA device")
+    return {"launches": launches, "decode_ms": decode_ms}
+
+
+def _figure_eight_run(torch, dev, pool, fast_cuda, trajectory, SlamSystem, main_fps: float) -> dict:
+    """Phase 11: the figure-eight world (two loop sites) through a stereo SlamSystem
+    at the reference test's configuration, with the viewer on (`use_viewer=True`,
+    the publisher's MemorySink)."""
+    from slam_framework_torch.tools.track_bench_world import figure_eight_world, multi_loop_config
+
+    cfg = dataclasses.replace(multi_loop_config(), use_viewer=True)
+    world = figure_eight_world(cfg)
+    n = world.num_frames
+    t0 = time.perf_counter()
+    pairs_np = pool.map(_render_figure_eight, range(n), chunksize=5)
+    pairs = [torch.from_numpy(np.stack(p)).to(dev) for p in pairs_np]
+    del pairs_np
+    print(f"figure-eight world: {n} stereo pairs of {cfg.camera.width}x{cfg.camera.height} rendered in "
+          f"{time.perf_counter() - t0:.1f} s by {RENDER_PROCS} processes", flush=True)
+    system = SlamSystem(cfg, sensor="stereo", sync_every=F8_SYNC, device=dev)
+    publisher, closer = system.publisher, system.loop_closer
+    sink = publisher.sinks[0]
+    loops_at = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in range(n):
+        system.track_stereo_device(pairs[f], world.timestamps[f])
+        if closer.n_loops_closed > len(loops_at):
+            loops_at.append(f)
+    system.tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    published = publisher.seq
+    # one more snapshot of the flushed map from the publisher's own thread
+    deadline = time.perf_counter() + 5.0
+    while publisher.seq < published + 2 and time.perf_counter() < deadline:
+        time.sleep(0.02)
+    last = sink.latest
+    kfs_now = system.arena.n_valid_kfs
+    # what the thread costs: one snapshot of the final map, taken rate_hz times a second
+    t1 = time.perf_counter()
+    for _ in range(5):
+        publisher.snapshot()
+    snap_ms = 1e3 * (time.perf_counter() - t1) / 5
+    stats = system.shutdown()
+    records = system.tracker.records
+    lost = [r.frame_id for r in records if r.lost]
+    ate, n_tracked = _ate_tracked(trajectory, system, world)
+    timers = system.tracker.timers.summary()
+    dispatch_ms = timers.get("dispatch", {}).get("total_ms", float("nan")) / n
+    gbas = closer.gba_log
+    print(f"figure-eight run ({cfg.camera.width}x{cfg.camera.height}, {cfg.orb.num_features} features, "
+          f"sync_every={F8_SYNC}, viewer on): {n} frames in {wall:.3f} s = {n / wall:.3f} frames/s (phase 6, "
+          f"KITTI geometry, no viewer: {main_fps:.3f}); dispatch {dispatch_ms:.1f} ms per frame; loops closed "
+          f"{stats['loops_closed']} at frames {loops_at} (edges {[(int(a), int(b)) for a, b, _ in closer.loop_edges]}, "
+          f"{closer.n_sim3_attempts} Sim3 attempts); global BAs {gbas}; lost {len(lost)} {lost} (reference on the "
+          f"CPU {F8_REF_LOST}, bound {F8_REF_LOST + F8_SYNC}); ATE over the {n_tracked} tracked frames {ate:.4f} m "
+          f"(bound {F8_ATE_BOUND_M} m); keyframes {stats['keyframes']}, map points {stats['map_points']}, resets "
+          f"{stats['resets']}; snapshots published {published} during the run, the last one's keyframes "
+          f"{last.n_keyframes if last else None} (arena {kfs_now}); one snapshot of the final map {snap_ms:.2f} ms "
+          f"({publisher.rate_hz:g} a second: {snap_ms * publisher.rate_hz / 10:.2f}% of the wall); fast_nms launches "
+          f"{launches}; peak device memory {peak / 2**20:.1f} MiB", flush=True)
+    print(f"figure-eight run stage timers: {json.dumps(timers)}", flush=True)
+    print(f"figure-eight run last report: {json.dumps(closer.last_report, default=float)}", flush=True)
+    if stats["loops_closed"] < 2 or len(loops_at) < 2 or loops_at[1] - loops_at[0] <= 100:
+        _fail(f"figure-eight: {stats['loops_closed']} loops closed at frames {loops_at}, not two sites "
+              f"more than 100 frames apart")
+    if len(lost) > F8_REF_LOST + F8_SYNC:
+        _fail(f"figure-eight: {len(lost)} lost frames, more than the reference's {F8_REF_LOST} + {F8_SYNC}")
+    if not ate <= F8_ATE_BOUND_M:
+        _fail(f"figure-eight: ATE {ate} m above the bound {F8_ATE_BOUND_M} m")
+    if launches != n:
+        _fail(f"figure-eight: fast_nms launches {launches} != one per frame over {n} frames")
+    if published < 1 or last is None or last.n_keyframes != kfs_now:
+        _fail(f"figure-eight: {published} snapshots published, the last one's keyframes "
+              f"{last.n_keyframes if last else None} against the arena's {kfs_now}")
+    # every closure's global BA merged, or aborted by a newer closure
+    outcomes = [g["outcome"] for g in gbas]
+    if len(gbas) != stats["loops_closed"] or outcomes[-1:] != ["merged"] or any(
+            o not in ("merged", "aborted") for o in outcomes):
+        _fail(f"figure-eight: the global BAs were not merged or aborted by a newer loop: {gbas}")
+    if not _state_on_card(system):
+        _fail("figure-eight: a tracker state tensor is off the CUDA device")
+    return {"launches": launches}
+
+
+_WORLD = None   # the bench world of a render worker
+_WORLD8 = None  # the figure-eight world of a render worker
 
 
 def _render_init() -> None:
-    global _WORLD
+    global _WORLD, _WORLD8
     from slam_framework_torch.config import SlamConfig
-    from slam_framework_torch.tools.track_bench_world import bench_world
+    from slam_framework_torch.tools.track_bench_world import bench_world, figure_eight_world, multi_loop_config
 
     _WORLD = bench_world(SlamConfig(), num_frames=N_FRAMES)
+    _WORLD8 = figure_eight_world(multi_loop_config())
 
 
 def _render(f: int):
@@ -954,20 +1196,38 @@ def _render(f: int):
     return left, _WORLD.render(f, right=True), depth
 
 
+def _render_figure_eight(f: int):
+    """Figure-eight frame f: the stereo pair."""
+    return _WORLD8.stereo_pair(f)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False")
+    from slam_framework_torch.utils import cuda_timing as timing
+
+    print(timing.card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    # the render workers live until the end: the figure-eight world is rendered in phase 11
+    pool = multiprocessing.get_context("spawn").Pool(RENDER_PROCS, initializer=_render_init)
+    try:
+        _phases(torch, pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _phases(torch, pool) -> None:
+    """Phases 2-12 and the final lines."""
     from slam_framework_torch import BUILD_DIR, native
     from slam_framework_torch.config import SlamConfig
     from slam_framework_torch.io import trajectory
     from slam_framework_torch.ops import fast_cuda, pyramid
     from slam_framework_torch.system import SlamSystem
-    from slam_framework_torch.tools.track_bench_world import bench_world
+    from slam_framework_torch.tools.track_bench_world import bench_world, multi_loop_config
     from slam_framework_torch.utils import cuda_timing as timing
 
-    print(timing.card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -982,26 +1242,29 @@ def main() -> None:
     cfg = SlamConfig()
     t0 = time.perf_counter()
     world = bench_world(cfg, num_frames=N_FRAMES)
-    with multiprocessing.get_context("spawn").Pool(RENDER_PROCS, initializer=_render_init) as pool:
-        frames = pool.map(_render, range(N_FRAMES), chunksize=5)
+    frames = pool.map(_render, range(N_FRAMES), chunksize=5)
     pairs_np = [(left, right) for left, right, _ in frames]
     print(f"world: {N_FRAMES} frames rendered (left image + its depth, right image) in "
           f"{time.perf_counter() - t0:.1f} s by {RENDER_PROCS} processes", flush=True)
 
-    def level_images(img):
-        return pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(), cfg.orb.num_levels, cfg.orb.scale_factor)
+    def level_images(img, orb=cfg.orb):
+        return pyramid.build_pyramid(torch.from_numpy(img).to(dev).float(), orb.num_levels, orb.scale_factor)
 
     levels = level_images(pairs_np[0][0]) + level_images(pairs_np[0][1])
     # the 8 level images an RGB-D frame (bench frame 0) and a monocular frame
     # (bench frame 1, the reference's init frame) hand to the kernel
     levels_rgbd, levels_mono = level_images(pairs_np[0][0]), level_images(pairs_np[1][0])
+    # the 8 level images (2 x 4 levels of 640x240) of a figure-eight stereo frame (phase 11)
+    f8_orb = multi_loop_config().orb
+    levels_f8 = [t for img in pool.apply(_render_figure_eight, (0,)) for t in level_images(img, f8_orb)]
     rng = np.random.default_rng(7)
     odd = [torch.from_numpy(rng.integers(0, 256, s).astype(np.float32)).to(dev)
            for s in ((75, 140), (7, 5), (200, 17), (61, 99))]
     odd[-1] = odd[-1] * 0.37 - 47.3  # values of both signs that are not whole numbers
     max_err = 0.0
     for what, imgs in (("frame 0, 8 levels x 2 images", levels), ("RGB-D frame 0, 8 levels", levels_rgbd),
-                       ("monocular frame 1, 8 levels", levels_mono), ("odd shapes", odd)):
+                       ("monocular frame 1, 8 levels", levels_mono),
+                       ("figure-eight frame 0, 4 levels x 2 images", levels_f8), ("odd shapes", odd)):
         fast_cuda.launches = 0
         got = fast_cuda.fast_nms_strength_levels(imgs)
         torch.cuda.synchronize()
@@ -1096,6 +1359,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches = fast_cuda.launches
     peak = torch.cuda.max_memory_allocated(dev)
+    main_fps = N_FRAMES / wall
 
     stats = system.shutdown()
     est = system.frame_poses()
@@ -1169,6 +1433,12 @@ def main() -> None:
     if MONO_FRAMES < N_FRAMES:
         print(f"monocular run: the first {MONO_FRAMES} of the {N_FRAMES} frames", flush=True)
     mono = _sensor_run(torch, dev, cfg, world, frames, "monocular", MONO_FRAMES, fast_cuda, trajectory, SlamSystem)
+
+    # ---- 11. the figure-eight world, viewer on
+    figure8 = _figure_eight_run(torch, dev, pool, fast_cuda, trajectory, SlamSystem, main_fps)
+
+    # ---- 12. a KITTI-layout sequence through the stereo runner
+    kitti = _kitti_run(torch, dev, world, pairs_np, fast_cuda, os.path.join(BUILD_DIR, "smoke_kitti"))
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1189,6 +1459,8 @@ def main() -> None:
         "launches_resume_run": resume["launches"],
         "launches_rgbd_run": rgbd["launches"],
         "launches_mono_run": mono["launches"],
+        "launches_figure_eight_run": figure8["launches"],
+        "launches_kitti_run": kitti["launches"],
         "ms_8_images": kernel8_ms,
         "ms_8_images_l2_flushed": flushed8_ms,
         "plain_ms_8_images": plain8_ms,

@@ -19,7 +19,7 @@ Rendering is host-side numpy (a handful of vectorized surface
 intersections + mip-mapped texture lookups per frame); it feeds the same
 entry points a KITTI loader would.
 
-Port of slam_framework_tpu/io/synthetic.py (`make_world`, the stereo pair
+Port of slam_framework_tpu/io/synthetic.py (`make_world`, `make_figure_eight_world`, the stereo pair
 and the RGB-D pair `rgbd_pair` / `render_depth`) without cv2:
 the bilinear remap, bicubic and area resizes and the filled ellipse / box
 stamps are written out in numpy after OpenCV's definitions. The random
@@ -552,6 +552,128 @@ def make_world(
         center=circle_center,
         r_inner=r_inner,
         r_outer=r_outer,
+        ground_y=ground_y,
+        wall_top=wall_top,
+        surfaces=surfaces,
+    )
+
+
+def make_figure_eight_world(
+    cam: CameraConfig | None = None,
+    seed: int = 0,
+    speed: float = 1.0,
+    lap_frames: int = 200,
+    num_frames: int | None = None,
+    corridor_half_width: float = 7.0,
+) -> SyntheticWorld:
+    """Figure-eight circuit: one lap around circle A (+yaw), one around the
+    tangent circle B (-yaw), then back onto A — producing TWO spatially
+    distinct loop-closure sites (the A-lap revisit near the crossing, then
+    the B-lap return to it after ~lap_frames of disjoint travel). Walls are
+    opened in an azimuth gap where the other corridor passes through the
+    crossing, like a road intersection. The reference's equivalent would be
+    a KITTI sequence with several revisits (e.g. seq 00)."""
+    cam = cam or CameraConfig()
+    rng = np.random.default_rng(seed)
+    if num_frames is None:
+        num_frames = 2 * lap_frames + lap_frames // 4
+
+    w = 2.0 * np.pi / lap_frames  # yaw per unit arc length at speed 1
+    hw = corridor_half_width
+    R_path = 1.0 / w
+    cA = np.array([R_path, 0.0])    # +yaw circle center (x, z)
+    cB = np.array([-R_path, 0.0])   # -yaw circle center
+
+    poses, ts = [], []
+    yaw = 0.0
+    yaw_lap = 0.0
+    sgn = 1.0
+    center = np.zeros(3)
+    for f in range(num_frames):
+        R_wc = np.array(
+            [
+                [np.cos(yaw), 0, np.sin(yaw)],
+                [0, 1, 0],
+                [-np.sin(yaw), 0, np.cos(yaw)],
+            ]
+        )
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R_wc.T
+        T[:3, 3] = -R_wc.T @ center
+        poses.append(T)
+        ts.append(f / cam.fps)
+        center = center + R_wc @ np.array([0.0, 0.0, speed])
+        yaw += sgn * w * speed
+        yaw_lap += w * speed
+        if yaw_lap >= 2.0 * np.pi - 1e-9:   # back at the crossing: switch circles
+            yaw_lap -= 2.0 * np.pi
+            sgn = -sgn
+
+    ground_y = 1.65
+    wall_top = -8.0
+    inner_top = -80.0
+    wall_res = 16.0
+    ground_res = 16.0
+
+    def _gap_interval(c_self, c_other, radius):
+        """Azimuth interval (around c_self) of the wall circle covered by the
+        OTHER corridor band — the stretch to leave open."""
+        th = np.linspace(-np.pi, np.pi, 4096)
+        P = c_self[None, :] + radius * np.stack([np.cos(th), np.sin(th)], 1)
+        rho = np.linalg.norm(P - c_other[None, :], axis=1)
+        blocked = np.abs(rho - R_path) < hw + 1.0
+        if not blocked.any():
+            return None
+        # contiguous interval around the crossing azimuth (toward the other
+        # center); rotate so it is contiguous in th
+        th_t = np.arctan2(c_other[1] - c_self[1], c_other[0] - c_self[0])
+        rel = np.mod(th - th_t + np.pi, 2.0 * np.pi) - np.pi
+        half = np.abs(rel[blocked]).max()
+        return th_t - half, th_t + half
+
+    surfaces = []
+    for c_self, c_other in ((cA, cB), (cB, cA)):
+        r_in = max(R_path - hw, 2.0)
+        r_out = R_path + hw
+        for radius, y_top in ((r_in, inner_top), (r_out, wall_top)):
+            gap = _gap_interval(c_self, c_other, radius)
+            if gap is None:
+                az0, span = -np.pi, 2.0 * np.pi
+                wrap = True
+            else:
+                az0 = gap[1]                       # strip starts after the gap
+                span = 2.0 * np.pi - (gap[1] - gap[0])
+                wrap = False
+            surfaces.append(
+                _Surface(
+                    kind="cyl", radius=radius,
+                    mips=_make_texture(rng, (ground_y - y_top) * wall_res,
+                                       span * radius * wall_res),
+                    res=wall_res, az0=az0, wrap=wrap,
+                    y_top=y_top, y_bot=ground_y,
+                    center=(float(c_self[0]), float(c_self[1])),
+                    az_span=span,
+                )
+            )
+        ground_h = (r_out - r_in + 4.0) * ground_res
+        surfaces.append(
+            _Surface(
+                kind="ground", radius=R_path,
+                mips=_make_texture(rng, ground_h, 2.0 * np.pi * R_path * ground_res,
+                                   waves=_GROUND_WAVES, contrast=0.30),
+                res=ground_res, az0=-np.pi, wrap=True,
+                center=(float(c_self[0]), float(c_self[1])),
+                r_lo=r_in - 2.0, r_hi=r_out + 1.0,
+            )
+        )
+
+    return SyntheticWorld(
+        cam=cam,
+        poses=np.stack(poses).astype(np.float32),
+        timestamps=np.asarray(ts),
+        center=cA,
+        r_inner=max(R_path - hw, 2.0),
+        r_outer=R_path + hw,
         ground_y=ground_y,
         wall_top=wall_top,
         surfaces=surfaces,

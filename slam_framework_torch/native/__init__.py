@@ -1,8 +1,11 @@
-"""The arena's native host loops (csrc/arena_ops.cpp), via ctypes.
+"""The arena's native host loops (csrc/arena_ops.cpp), via ctypes, and the
+g++ route that builds this package's host C++ sources.
 
 The C++ source is this package's copy of the reference package's
 native/arena_ops.cpp; it is compiled with g++ at first use into this package's
-build directory, keyed on the source's hash. When no compiler works, `load_arena_ops` returns None and the
+build directory, keyed on the source's and the flags' hash. The flags name no
+host CPU (no -march=native), so a build directory carried to another machine
+holds nothing that machine cannot run. When no compiler works, `load_arena_ops` returns None and the
 arena takes its numpy paths.
 """
 
@@ -20,12 +23,32 @@ SOURCE = os.path.join(PACKAGE_DIR, "csrc", "arena_ops.cpp")
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
+CXXFLAGS = ("-O3", "-shared", "-fPIC")
 
 
-def _lib_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"arena_ops_{digest}.so")
+def library_path(source: str) -> str:
+    """Where the library built from `source` lives: named after the source and
+    the hash of its text and of the compiler flags."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode()).hexdigest()[:16]
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+
+
+def compile_host_library(source: str) -> ctypes.CDLL:
+    """Compile one C++ source of csrc/ with g++ into the build directory (once:
+    the file name carries the source's and the flags' hash) and load it. Raises OSError or
+    subprocess.CalledProcessError when it cannot be built or loaded."""
+    so = library_path(source)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(
+            ["g++", *CXXFLAGS, source, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
 def load_arena_ops():
@@ -36,16 +59,7 @@ def load_arena_ops():
             return _LIB
         _TRIED = True
         try:
-            so = _lib_path()
-            if not os.path.exists(so):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{so}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", SOURCE, "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(so)
+            lib = compile_host_library(SOURCE)
         except (OSError, subprocess.CalledProcessError):
             return None
 

@@ -137,6 +137,8 @@ class LoopCloser:
         self.last_report: dict = {}
         self.cap_clips: dict = {}
         self._gba_pending = None   # in-flight global BA (see apply_pending_gba)
+        # what became of each global BA: {"kf": loop keyframe, "outcome": "merged" | "aborted"}
+        self.gba_log: List[dict] = []
         self._bow_pending = None   # (kf, word, weight on the device) awaiting harvest
         # the RANSAC's index sets are drawn on the host, so the card and the
         # CPU test the same hypotheses
@@ -686,13 +688,15 @@ class LoopCloser:
         # created while it was in flight). A newer loop closure aborts the
         # in-flight result (the stop_global_bundle_adj_ flag).
         if cfg.loop.run_global_ba:
-            self._gba_pending = None  # abort any stale in-flight GBA
-            self._dispatch_global_ba()
+            if self._gba_pending is not None:  # abort the stale in-flight GBA
+                self.gba_log.append({"kf": self._gba_pending["kf"], "outcome": "aborted"})
+                self._gba_pending = None
+            self._dispatch_global_ba(kf)
         self.last_report.update({"fused": n_fused, "group": len(group)})
 
     # ------------------------------------------------------------------ async global BA
 
-    def _dispatch_global_ba(self) -> None:
+    def _dispatch_global_ba(self, kf: int) -> None:
         """Enqueue the global BA on the device and return: its result is
         fetched by apply_pending_gba at a later keyframe. Nothing between here
         and there reads it back."""
@@ -702,6 +706,7 @@ class LoopCloser:
             prob, K=self.K, iters_first=0, iters_second=self.cfg.loop.global_ba_iters
         )
         self._gba_pending = {
+            "kf": kf,
             "res": res,
             "cams": np.asarray(cams),
             "pids": np.asarray(pids),
@@ -782,6 +787,7 @@ class LoopCloser:
             {"gba": {"cams": len(cams), "points": len(pids),
                      "chi2": float(total_chi2), "merged_kfs": len(post) - len(in_prob)}}
         )
+        self.gba_log.append({"kf": pending["kf"], "outcome": "merged"})
         return True
 
     # ------------------------------------------------------------------ pose graph

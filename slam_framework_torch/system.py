@@ -10,7 +10,8 @@ checkpoint (`save_map` / `load_map`, the reference's SaveMap TODO). The tracker
 owns the local mapper (pipeline/local_mapper.py); every new keyframe is handed
 to the loop closer (pipeline/loop_closer.py) before the mapper processes it,
 and a lost frame to the relocalizer (pipeline/relocalization.py) built from
-the loop closer.
+the loop closer. `cfg.use_viewer` starts a MapPublisher thread
+(viz/publisher.py) that snapshots the host-side map for live viewers.
 
 The vocabulary is `cfg.vocabulary_path` or the shipped asset; when no file
 loads, one is trained online from the first keyframes' descriptors, and place
@@ -34,6 +35,7 @@ from slam_framework_torch.pipeline.loop_closer import LoopCloser
 from slam_framework_torch.pipeline.mono_tracker import MonoTracker
 from slam_framework_torch.pipeline.relocalization import Relocalizer
 from slam_framework_torch.pipeline.tracker import StereoTracker, TrackingState
+from slam_framework_torch.viz import MapPublisher
 
 
 class SlamSystem:
@@ -64,9 +66,6 @@ class SlamSystem:
             cfg = dataclasses.replace(cfg, sensor=sensor)
         if cfg.sensor not in self.SENSORS:
             raise ValueError(f"sensor {cfg.sensor!r} is none of {self.SENSORS}")
-        if cfg.use_viewer:
-            # the reference starts a MapPublisher (its system.py:93-103)
-            raise ValueError("use_viewer: the map viewer (viz/) is not ported yet")
         self.cfg = cfg
         self.sync_every = sync_every
         self.device = resolve_device(device)
@@ -90,6 +89,15 @@ class SlamSystem:
             if self.vocab is not None:
                 self._activate_place_recognition()
             self.tracker.on_new_keyframe = self._on_new_keyframe
+        # visualization thread (reference: RosPublisher, started when use_ros is
+        # set, slam_system.cpp:69-73) — sink-pluggable, see viz/publisher.py
+        prev_pub = getattr(self, "publisher", None)
+        if prev_pub is not None:
+            prev_pub.stop()
+        self.publisher: Optional[MapPublisher] = None
+        if cfg.use_viewer:
+            self.publisher = MapPublisher(self.tracker, self.arena)
+            self.publisher.start()
 
     def reset(self) -> None:
         """Tracker::Reset (tracker.cpp:225-246): clear map and state."""
@@ -100,6 +108,8 @@ class SlamSystem:
         """Drain buffered frames, the mapper's in-flight work, the deferred loop
         detection and a pending global BA; return run statistics (Shutdown
         :226-247)."""
+        if self.publisher is not None:
+            self.publisher.stop()
         self._settle()
         mapper = self.tracker.local_mapper
         caps = dict(mapper.cap_clips)

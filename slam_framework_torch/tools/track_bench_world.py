@@ -2,6 +2,7 @@
 
     python -m slam_framework_torch.tools.track_bench_world --frames 330 --device cpu
     python -m slam_framework_torch.tools.track_bench_world --sensor rgbd --device cpu
+    python -m slam_framework_torch.tools.track_bench_world --world figure8 --geometry multi-loop --sync 2 --device cpu
 
 The world is bench.py's (seed 3, speed 1.0, yaw 2*pi/300, 22,000 landmarks) at
 `SlamConfig()` defaults (1241x376, 2000 features, 8 levels, default
@@ -23,6 +24,14 @@ line then carries the frames without a tracked pose, the monocular
 initialization and the ATE over the tracked frames, SE3-aligned for RGB-D and
 Sim3-aligned for monocular, whose scale is free
 (`tools/ref_sensor_bench_world.py` prints the reference's on the same pixels).
+`--world figure8` tracks the figure-eight world instead (seed 4, speed 1.0,
+`lap_frames=200`: 450 frames, two loop sites, `--frames` defaults to all of
+them); the line then also carries the frame at which each loop closed and the
+global BAs' outcomes.
+`--geometry multi-loop` runs the reference's TestMultiLoop configuration
+(`multi_loop_config`: 640x240, 800 features, 4 levels) in place of `SlamConfig()`;
+`--world figure8 --geometry multi-loop` gives `chip_smoke.py`'s phase 11 bound
+(`tools/ref_figure_eight_world.py` is the reference's run of the same pixels).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from slam_framework_torch.config import SlamConfig
+from slam_framework_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
 from slam_framework_torch.io import synthetic, trajectory
 from slam_framework_torch.system import SlamSystem
 
@@ -44,6 +53,21 @@ def bench_world(cfg: SlamConfig, num_frames: int = 330):
         num_frames=num_frames, cam=cfg.camera, seed=3, speed=1.0,
         yaw_rate=2.0 * np.pi / 300.0, num_landmarks=22000,
     )
+
+
+def multi_loop_config() -> SlamConfig:
+    """The configuration of the reference's TestMultiLoop (tests/test_system.py:16-28,
+    339-345): 640x240, 800 features on 4 levels, 192 keyframes, 131,072 points."""
+    return SlamConfig(
+        camera=CameraConfig(fx=400.0, fy=400.0, cx=320.0, cy=120.0, width=640, height=240, fps=10.0, bf=400.0 * 0.54),
+        orb=OrbConfig(num_features=800, num_levels=4),
+        capacity=CapacityConfig(max_keyframes=192, max_map_points=131072, max_features=1024, local_window_points=8192),
+    )
+
+
+def figure_eight_world(cfg: SlamConfig):
+    """The two-loop world of the reference's TestMultiLoop, at cfg's camera."""
+    return synthetic.make_figure_eight_world(cam=cfg.camera, seed=4, speed=1.0, lap_frames=200)
 
 
 def sensor_summary(system: SlamSystem, world, n_frames: int) -> dict:
@@ -115,18 +139,22 @@ def loop_summary(system: SlamSystem) -> dict:
     """What the loop stage did: where it closed, its last report, its attempts."""
     closer = system.loop_closer
     if closer is None:
-        return {"closed_at_kf": None, "loop_edges": [], "n_sim3_attempts": 0, "last_report": {}}
+        return {"closed_at_kf": None, "loop_edges": [], "n_sim3_attempts": 0, "last_report": {}, "gba_log": []}
     return {
         "closed_at_kf": int(closer.last_loop_kf) if closer.n_loops_closed else None,
         "loop_edges": [(int(a), int(b)) for a, b, _ in closer.loop_edges],
         "n_sim3_attempts": closer.n_sim3_attempts,
         "last_report": closer.last_report,
+        "gba_log": closer.gba_log,
     }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=330)
+    ap.add_argument("--frames", type=int, default=0, help="frames to track (default: 330, or all of figure8)")
+    ap.add_argument("--world", default="bench", choices=("bench", "figure8"))
+    ap.add_argument("--geometry", default="kitti", choices=("kitti", "multi-loop"),
+                    help="SlamConfig() at KITTI geometry, or the reference's TestMultiLoop configuration")
     ap.add_argument("--sync", type=int, default=8)
     ap.add_argument("--device", default=None, help="cpu, cuda, cuda:1 ... (default: the first CUDA device)")
     ap.add_argument("--threads", type=int, default=0)
@@ -137,22 +165,30 @@ def main() -> None:
     if args.threads:
         torch.set_num_threads(args.threads)
 
-    cfg = SlamConfig()
-    world = bench_world(cfg, num_frames=max(args.frames, 330))
+    cfg = SlamConfig() if args.geometry == "kitti" else multi_loop_config()
+    if args.world == "figure8":
+        world = figure_eight_world(cfg)
+        args.frames = args.frames or world.num_frames
+    else:
+        args.frames = args.frames or 330
+        world = bench_world(cfg, num_frames=max(args.frames, 330))
     system = SlamSystem(cfg, sensor=args.sensor, sync_every=args.sync, device=args.device,
                         place_recognition=not args.no_loop_closer)
     blackout = parse_blackout(args.blackout)
     if blackout and args.sensor != "stereo":
         ap.error("--blackout takes the stereo sensor")
     t0 = time.perf_counter()
+    loops_at = []
     for f in range(args.frames):
         feed(system, world, f, blackout)
+        if system.loop_closer and system.loop_closer.n_loops_closed > len(loops_at):
+            loops_at.append(f)
     stats = system.shutdown()
     wall = time.perf_counter() - t0
     est = system.frame_poses()
     records = system.tracker.records
     print(json.dumps({
-        "device": str(system.device), "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
+        "device": str(system.device), "world": args.world, "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
         "wall_s_with_rendering": wall, "frames_per_s_with_rendering": args.frames / wall,
         "ate_m": (trajectory.ate_rmse(est, world.poses[: args.frames], align="se3")
                   if args.sensor != "monocular" and len(est) == args.frames else None),
@@ -160,6 +196,7 @@ def main() -> None:
         "first_lost_frame": next((r.frame_id for r in records if r.lost), None),
         "stats": stats,
         **loop_summary(system),
+        "loops_at_frames": loops_at,
         **(blackout_summary(system, world, blackout) if blackout else {}),
         **(sensor_summary(system, world, args.frames) if args.sensor != "stereo" else {}),
         "timers": system.tracker.timers.summary(),

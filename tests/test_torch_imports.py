@@ -45,7 +45,9 @@ want = ["geometry.triangulation", "optim.local_ba", "pipeline.kf_store", "pipeli
         "pipeline.local_mapper", "tools.ba_synthetic", "tools.track_bench_world",
         "geometry.sim3", "bow.vocabulary", "bow.database", "solvers.sim3solver", "optim.pose_graph",
         "optim.global_ba", "pipeline.loop_closer", "tools.bench_torch",
-        "solvers.pnp", "pipeline.relocalization", "io.checkpoint"]
+        "solvers.pnp", "pipeline.relocalization", "io.checkpoint",
+        "io.png", "io.kitti", "viz.publisher", "examples.main_stereo", "examples.main_mono",
+        "examples.main_rgbd"]
 missing = [w for w in want if "slam_framework_torch." + w not in sys.modules]
 print(json.dumps({"modules": len(mods), "missing": missing, "frames": len(s.tracker.records),
                   "lost": sum(r.lost for r in s.tracker.records), "bad": bad,
@@ -130,7 +132,7 @@ def test_arena_copy_and_operations_match_reference():
 def test_native_arena_ops_build_in_port_build_dir():
     lib = native.load_arena_ops()
     assert lib is not None
-    assert native._lib_path().startswith(slam_framework_torch.BUILD_DIR)
+    assert native.library_path(native.SOURCE).startswith(slam_framework_torch.BUILD_DIR)
     assert native.SOURCE.startswith(slam_framework_torch.PACKAGE_DIR)
 
 

@@ -1,7 +1,8 @@
 """The port's SlamSystem constructor against the reference's
 (slam_framework_tpu/system.py:49-103): a config file and a sensor build the same
-SlamConfig in both; the viewer, not ported, is refused rather than ignored; an
-unknown sensor and a missing config are refused."""
+SlamConfig in both; the viewer starts its publisher thread (it was refused
+before viz/ was ported; tests/test_torch_viz.py covers it); an unknown sensor
+and a missing config are refused."""
 
 import dataclasses
 import os
@@ -28,9 +29,14 @@ def test_config_path_builds_the_reference_config(sensor):
 
 
 def test_viewer_unknown_sensor_and_missing_config_are_refused():
+    """The viewer is no longer refused: `use_viewer=True` starts the publisher's
+    thread and `shutdown` stops it. An unknown sensor, a missing config and a
+    stereo config handed to MonoTracker are refused."""
     cfg = tconf.SlamConfig(capacity=tconf.CapacityConfig(max_keyframes=8, max_map_points=1024, max_features=256))
-    with pytest.raises(ValueError, match="viewer"):
-        SlamSystem(dataclasses.replace(cfg, use_viewer=True), device="cpu")
+    viewer = SlamSystem(dataclasses.replace(cfg, use_viewer=True), device="cpu", place_recognition=False)
+    assert viewer.publisher._thread.is_alive()
+    viewer.shutdown()
+    assert viewer.publisher._thread is None
     with pytest.raises(ValueError, match="sensor 'lidar'"):
         SlamSystem(cfg, sensor="lidar", device="cpu")
     with pytest.raises(ValueError, match="cfg or config_path"):
