@@ -132,6 +132,40 @@ Phases (any failure exits non-zero before the final line):
      runner's `run` calls after parsing its arguments) over the sequence with
      config/kitti_stereo.json: 60 frames, 0 lost, ATE at most twice the port's
      CPU figure over the same frames, 60 FAST launches; its JSON line is printed.
+  13. the distributed layer (`slam_framework_torch/parallel/`) on the card, 8
+     ranks of one `LocalMesh` (threads on the caller's stream): (a) the global
+     BA of phase 6's saved map as the loop closer runs it (owner-keyed by 8
+     covisibility segments, 0 + 10 LM), single-device and sharded: the shard
+     layout, the replicated cameras bit-equal on all 8 ranks, the sharded
+     program on ONE rank bit-equal to the single-device program, the total chi2
+     within 0.5%, the camera and point differences (also after 1 and 2 LM
+     iterations, and the single-device program's between the card and the
+     CPU: on this map the LM's accept test parts the paths on a rounding, see
+     MESH_CHI2_REL_TOL), ONE LM step at each initial damping of
+     MESH_STEP_LAMS beside the single-device step on the CPU (held in (f)), ms
+     (events around one call, and the host's enqueue) and kernels per call
+     both ways; then phase 5's synthetic map (5 + 10 LM)
+     sharded over 8 contiguous point blocks: cameras within 1e-3 m and points
+     within 2e-3 m of single-device; (b) the edge-sharded pose
+     graph on phase 5's ring of 128 against `pose_graph.optimize`: t within
+     1e-3, R and s within 1e-4, every rank bit-equal; (c) `migrate_points` on
+     the card against its plain numpy re-deal, bit-equal, with and without
+     overflow; (d) the 330 bench frames through `SlamSystem(mesh=LocalMesh(8))`:
+     fails unless a loop closes, its global BA ran over 8 ranks with every
+     shard on the card, the migration ran and landed (`migrated_ok`), 0 lost,
+     ATE within phase 6's bound, one FAST launch per frame and every state
+     tensor on the card; prints `moved`, the segments, frames/s beside phase
+     6's, the host time of the sharded dispatch and of the merge, and the
+     `loop` timer; (e) with two GPUs visible, the 2-rank NCCL demo
+     (`tools/multihost_demo.py --device cuda`), else one line saying why not;
+     (f) the one-LM-step check of (a): at the damping MESH_STEP_HELD_LAM both
+     programs take their step and land within 1e-3 m (cameras) / 2e-3 m
+     (points) of each other; and controls for (a): the sharded global BA
+     of both maps again over meshes with a fault planted in its sums
+     (MESH_CONTROLS: the last rank's part left out of the CG's Schur products,
+     of the right-hand side or of every sum, or the Schur products not summed
+     at all); each must fail at least one check of (a) / (a'), and which ones
+     it fails is printed. (f) runs last so that every reading is printed first.
 The bench world is rendered by a pool of worker processes, which also renders
 the figure-eight world in phase 11 and is stopped at the end. Then the smoke's
 total time, one JSON line describing the kernel (with the launches of every
@@ -229,6 +263,40 @@ F8_ATE_BOUND_M = 2 * F8_ATE_CPU_M
 KITTI_FRAMES = 60
 KITTI_ATE_CPU_M = 0.1306
 KITTI_ATE_BOUND_M = 2 * KITTI_ATE_CPU_M
+# phase 13, the distributed layer: 8 ranks of one LocalMesh on the card, as the
+# reference's TestDistributedSystem runs 8 devices. Sharded against
+# single-device: the global BA's cameras within 1e-3 m and points within
+# 2e-3 m, the pose graph's t within 1e-3 and R, s within 1e-4 (the tolerances
+# of the reference's tests/test_dist_ba.py and test_dist_pose_graph.py); the
+# migration bit-equal to its plain re-deal. The live run is held to phase 6's
+# bounds.
+MESH_RANKS = 8
+MESH_CAM_TOL_M, MESH_PT_TOL_M = 1e-3, 2e-3
+# On phase 6's real map the loop closer's 0 + 10 LM do not hold those bounds in
+# ANY two sum orders: a step accepted in one order is rejected in the other and
+# the paths part (phase 13 prints the camera difference after the first and the
+# second LM iteration, and the single-device program's on the card against the
+# CPU after ten: on an H100, 0 and 1.2e-2 m, and 3.9e-2 m). There the sharded
+# program is held bit-equal to the single-device one on ONE rank (the same sum
+# order), its ranks bit-equal to each other, and, after the 10 LM, its total
+# chi2 within MESH_CHI2_REL_TOL of single-device: 6.4e-4 sound; the controls of
+# (f) 4.2e-4 (the right-hand side's fault: the LM rejects its steps, so no
+# chi2 limit sees it), 3.7e-2, 0.11, 0.15; card vs CPU 3.1e-3 (an H100). The
+# limit sits at the geometric middle of 6.4e-4 and 3.7e-2, above the card/CPU
+# spread. The metric bounds are held on phase 5's synthetic map (5 + 10 LM) and
+# on ONE LM step from phase 6's map at the damping MESH_STEP_HELD_LAM: on an
+# H100 both programs reject the step at 1e-4; at 1e-2 they take it 1.8e-4 m
+# (cameras) and 3.5e-3 m (points) apart; at 1 6.5e-8 / 8.5e-6 m, every control
+# 5.5e-3 m (cameras) or more.
+MESH_CHI2_REL_TOL = 5e-3
+MESH_STEP_LAMS = (1e-4, 1e-2, 1.0)
+MESH_STEP_HELD_LAM = 1.0
+MESH_PG_T_TOL_M, MESH_PG_RS_TOL = 1e-3, 1e-4
+MIGRATE_R = 4096   # rows per rank in the migration check
+# phase 13 (f): planted faults in the sums of the sharded global BA (site, fault),
+# each of which the checks of (a) / (a') must catch (_planted_mesh)
+MESH_CONTROLS = (("schur_product", "drop_rank"), ("rhs", "drop_rank"), ("every_sum", "drop_rank"),
+                 ("schur_product", "unreduced"))
 REPLACES = "slam_framework_tpu/ops/fast_pallas.py:114"
 
 
@@ -237,13 +305,17 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _count_launches(torch, fn):
-    """(kernels, memcpys + memsets) the device ran for one fn(), from torch.profiler."""
+def _count_launches(torch, fn, warm: bool = True, host_ops: bool = True):
+    """(kernels, memcpys + memsets) the device ran for one fn(), from torch.profiler
+    (CUPTI sees the kernels of every thread of the process). host_ops=False
+    records device activity alone, which parses faster for a large program."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1177,6 +1249,388 @@ def _figure_eight_run(torch, dev, pool, fast_cuda, trajectory, SlamSystem, main_
     return {"launches": launches}
 
 
+def _mesh_programs(torch, dev, cfg, map_path: str) -> dict:
+    """Phase 13 (a)-(c): the sharded global BA of phase 6's saved map and of
+    phase 5's synthetic map, the edge-sharded pose graph and the point
+    migration over LocalMesh(8) on the card, each held against its
+    single-device / plain version."""
+    from slam_framework_torch.geometry.projection import Intrinsics
+    from slam_framework_torch.io import checkpoint
+    from slam_framework_torch.optim import global_ba, pose_graph
+    from slam_framework_torch.parallel import LocalMesh, dist_ba, dist_pose_graph, map_shard
+    from slam_framework_torch.tools import ba_synthetic, multihost_demo
+
+    mesh = LocalMesh(MESH_RANKS, dev)
+    D = mesh.size
+
+    def centres(poses, n):
+        poses = poses.cpu().numpy().astype(np.float64)[:n]
+        return -np.einsum("cji,cj->ci", poses[:, :3, :3], poses[:, :3, 3])
+
+    def timed(fn, count=False):
+        """(fn(), its timing): the call timed between two events and by the
+        host clock (its enqueue); with count, one more call under the profiler
+        (device activity only) for its kernels. Every program here ran on the
+        card in an earlier phase."""
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        b.record()
+        torch.cuda.synchronize()
+        kernels, copies = _count_launches(torch, fn, warm=False, host_ops=False) if count else (None, None)
+        return out, {"ms": a.elapsed_time(b), "host_enqueue_ms": host_ms, "kernels": kernels, "copies": copies}
+
+    def sharded_vs_single(res, single, n_c, n_pts, owner):
+        """Largest camera-centre and point differences, and the point differences."""
+        cam = float(np.linalg.norm(centres(res.cam_pose, n_c) - centres(single.cam_pose, n_c), axis=1).max())
+        pts = dist_ba.unshard_points(res.pt_pos.cpu().numpy(), n_pts, D, owner)
+        pt_d = np.linalg.norm(pts - single.pt_pos[:n_pts].cpu().numpy(), axis=1)
+        return cam, float(pt_d.max()), pt_d
+
+    def judged(per_rank, mesh_, single, n_c, n_pts, owner):
+        """What the checks of (a) read from one sharded run: the ranks'
+        cameras and chi2 bit-equal, the differences from single-device and
+        the relative total chi2 difference."""
+        res = dist_ba.assemble(mesh_, per_rank)
+        equal = all(torch.equal(r.cam_pose, per_rank[0].cam_pose) and torch.equal(r.total_chi2, per_rank[0].total_chi2)
+                    for r in per_rank)
+        cam, pt, pt_d = sharded_vs_single(res, single, n_c, n_pts, owner)
+        chi2_rel = abs(float(res.total_chi2) - float(single.total_chi2)) / max(float(single.total_chi2), 1e-12)
+        return {"ranks_bit_equal": equal, "cam_err_m": cam, "pt_err_m": pt, "chi2_rel": chi2_rel,
+                "finite": bool(np.isfinite(pt_d).all()), "pt_d": pt_d}
+
+    # ---- (a) the global BA of phase 6's map, as the loop closer runs it
+    arena, _, _ = checkpoint.load_map(map_path)
+    K = Intrinsics(cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy, cfg.camera.bf)
+    iters = dict(iters_first=0, iters_second=cfg.loop.global_ba_iters)
+    m = map_shard.shard_map_problem(arena, cfg, mesh)
+    host_prob, owner, sharded = m.prob, m.owner, m.sharded
+    prob = global_ba.GlobalBAProblem(*[t.to(dev) for t in host_prob])
+    n_c, n_p = len(m.cams), len(m.pids)
+    one = LocalMesh(1, dev)
+    sharded_one = dist_ba.shard_problem(host_prob, 1, owner=np.zeros_like(owner), device=dev)
+
+    def run_single():
+        return global_ba.optimize_global(prob, K, **iters)
+
+    def run_ranks():
+        return dist_ba.optimize_global_ranks(sharded, mesh, K, **iters)
+
+    single, t_single = timed(run_single, count=True)
+    per_rank, t_mesh = timed(run_ranks, count=True)
+    got = judged(per_rank, mesh, single, n_c, n_p, owner)
+    ranks_equal, cam_err, pt_err, chi2_rel, pt_d = (got[k] for k in ("ranks_bit_equal", "cam_err_m", "pt_err_m",
+                                                                    "chi2_rel", "pt_d"))
+    # the sharded program on ONE rank sums in the single-device order: the same bits
+    res_one = dist_ba.assemble(one, dist_ba.optimize_global_ranks(sharded_one, one, K, **iters))
+    one_equal = torch.equal(res_one.cam_pose, single.cam_pose) and torch.equal(res_one.pt_pos, single.pt_pos)
+    t0 = time.perf_counter()
+    on_cpu = global_ba.optimize_global(host_prob, K, **iters)
+    cpu_s = time.perf_counter() - t0
+    # where the two LM paths part: after each of the first iterations
+    parted = []
+    for k in (1, 2):
+        it = dict(iters_first=0, iters_second=k)
+        parted.append(sharded_vs_single(dist_ba.optimize_global_sharded(sharded, mesh, K, **it),
+                                        global_ba.optimize_global(prob, K, **it), n_c, n_p, owner)[0])
+    # ONE LM step from the map as loaded, at each initial damping of a ladder
+    # (one step takes one accept decision, so two sum orders cannot part on
+    # it), beside the single-device step on the CPU against the card's
+    start = global_ba.optimize_global(prob, K, iters_first=0, iters_second=0)
+    one_single = {lam: global_ba.optimize_global(prob, K, iters_first=0, iters_second=1, lam0=lam)
+                  for lam in MESH_STEP_LAMS}
+    one_cpu = {lam: global_ba.optimize_global(host_prob, K, iters_first=0, iters_second=1, lam0=lam)
+               for lam in MESH_STEP_LAMS}
+
+    def one_step(mesh_) -> dict:
+        """The sharded program's one LM step against single-device's at each
+        damping: taken or not (the cameras moved), the differences; held to
+        the metric bounds at MESH_STEP_HELD_LAM, where both must take it."""
+        rows = []
+        for lam, want in one_single.items():
+            per = dist_ba.optimize_global_ranks(sharded, mesh_, K, iters_first=0, iters_second=1, lam0=lam)
+            cam, pt, _ = sharded_vs_single(dist_ba.assemble(mesh_, per), want, n_c, n_p, owner)
+            rows.append({"lam0": lam, "single_accepted": not torch.equal(want.cam_pose, start.cam_pose),
+                         "accepted": not torch.equal(per[0].cam_pose, start.cam_pose), "cam_err_m": cam,
+                         "pt_err_m": pt})
+        (held,) = [r for r in rows if r["lam0"] == MESH_STEP_HELD_LAM]
+        ok = (held["single_accepted"] and held["accepted"] and held["cam_err_m"] <= MESH_CAM_TOL_M
+              and held["pt_err_m"] <= MESH_PT_TOL_M)
+        return {"steps": rows, "within_bounds": ok}
+
+    step = one_step(mesh)
+    for r in step["steps"]:
+        cpu = one_cpu[r["lam0"]]
+        want = one_single[r["lam0"]].pt_pos[:n_p].cpu().numpy()
+        r["cpu_cam_err_m"] = float(np.linalg.norm(centres(cpu.cam_pose, n_c) - centres(one_single[r["lam0"]].cam_pose,
+                                                                                       n_c), axis=1).max())
+        r["cpu_pt_err_m"] = float(np.linalg.norm(cpu.pt_pos[:n_p].numpy() - want, axis=1).max())
+    cpu_cam = float(np.linalg.norm(centres(on_cpu.cam_pose, n_c) - centres(single.cam_pose, n_c), axis=1).max())
+    cpu_chi2_rel = abs(float(on_cpu.total_chi2) - float(single.total_chi2)) / max(float(single.total_chi2), 1e-12)
+    obs_per_rank = sharded.obs_mask.reshape(D, -1).sum(1).tolist()
+    gba = {"cams": n_c, "points": n_p, "obs": int(prob.obs_mask.sum()), "cam_err_m": cam_err, "pt_err_m": pt_err,
+           "cam_err_after_lm_1_2_m": parted, "cpu_cam_err_m": cpu_cam, "cpu_chi2_rel": cpu_chi2_rel,
+           "chi2_rel": chi2_rel, "ranks_bit_equal": ranks_equal, "one_rank_bit_equal": one_equal,
+           "one_step": step, "single": t_single, "mesh": t_mesh}
+    print(f"mesh global BA of phase 6's map ({n_c} cameras, {n_p} points, {gba['obs']} observations; "
+          f"{iters['iters_first']} + {iters['iters_second']} LM x 60 PCG, the loop closer's): {mesh!r}, "
+          f"owner-keyed by {D} covisibility segments, per rank {sharded.pt_pos.shape[0] // D} point slots / "
+          f"{sharded.obs_cam.shape[0] // D} observation slots / {sharded.cam_obs_slots.shape[2]} slots per camera, "
+          f"points per rank {np.bincount(owner, minlength=D).tolist()}, observations per rank {obs_per_rank}, "
+          f"boundary points {m.partition.stats()['boundary_points']}; replicated cameras bit-equal on all {D} ranks: "
+          f"{ranks_equal}; the sharded program on one rank bit-equal to the single-device one: {one_equal}; "
+          f"sharded vs single-device: cameras {cam_err:.3e} m, points {pt_err:.3e} m (median {np.median(pt_d):.3e}), "
+          f"total chi2 relative {chi2_rel:.3e} (tolerance {MESH_CHI2_REL_TOL}); cameras after 1 and 2 LM iterations "
+          f"{parted[0]:.3e} / {parted[1]:.3e} m apart; one LM step (held at lam0 {MESH_STEP_HELD_LAM:g}: "
+          f"cameras tolerance {MESH_CAM_TOL_M}, points {MESH_PT_TOL_M}): " + "; ".join(
+              f"lam0 {r['lam0']:g} single {'accepted' if r['single_accepted'] else 'rejected'} sharded "
+              f"{'accepted' if r['accepted'] else 'rejected'}, cameras {r['cam_err_m']:.3e} m, points "
+              f"{r['pt_err_m']:.3e} m (single-device CPU vs card {r['cpu_cam_err_m']:.3e} / {r['cpu_pt_err_m']:.3e} m)"
+              for r in step["steps"]) + "; the single-device program on the "
+          f"CPU vs the card: cameras {cpu_cam:.3e} m, total chi2 relative {cpu_chi2_rel:.3e} ({cpu_s:.1f} s); "
+          f"single-device {t_single['ms']:.3f} ms "
+          f"({t_single['host_enqueue_ms']:.3f} ms host enqueue), {t_single['kernels']} kernels + "
+          f"{t_single['copies']} copies; over the mesh {t_mesh['ms']:.3f} ms ({t_mesh['host_enqueue_ms']:.3f} ms host "
+          f"enqueue), {t_mesh['kernels']} kernels + {t_mesh['copies']} copies", flush=True)
+    if not ranks_equal:
+        _fail("mesh global BA: the replicated cameras differ between ranks")
+    if not one_equal:
+        _fail("mesh global BA: the sharded program on one rank differs from the single-device program")
+    if not (got["finite"] and chi2_rel <= MESH_CHI2_REL_TOL):
+        _fail(f"mesh global BA: sharded total chi2 relative difference {chi2_rel} above {MESH_CHI2_REL_TOL}, "
+              f"or non-finite points")
+
+    # ---- (a') the synthetic map of phase 5 (5 + 10 LM), where the steps are clear-cut
+    syn = ba_synthetic.build_global_problem(seed=12)
+    syn_prob = global_ba.GlobalBAProblem(**{k: torch.from_numpy(v) for k, v in syn.arrays.items()})
+    n_live = int(syn_prob.pt_mask.sum())
+    syn_owner = (np.arange(n_live) * D) // n_live  # contiguous blocks, as covisibility segments
+    syn_sharded = dist_ba.shard_problem(syn_prob, D, owner=syn_owner, device=dev)
+    syn_dev = global_ba.GlobalBAProblem(*[t.to(dev) for t in syn_prob])
+    Ks = ba_synthetic.K_SYNTHETIC
+    n_sc = syn.poses_true.shape[0]
+    syn_single, ts_single = timed(lambda: global_ba.optimize_global(syn_dev, Ks))
+    syn_ranks, ts_mesh = timed(lambda: dist_ba.optimize_global_ranks(syn_sharded, mesh, Ks))
+    syn_got = judged(syn_ranks, mesh, syn_single, n_sc, n_live, syn_owner)
+    syn_cam, syn_pt = syn_got["cam_err_m"], syn_got["pt_err_m"]
+    gba["synthetic"] = {"cam_err_m": syn_cam, "pt_err_m": syn_pt, "single": ts_single, "mesh": ts_mesh}
+    print(f"mesh global BA of phase 5's synthetic map ({n_sc} cameras, {n_live} points, 5 + 10 LM x 60 PCG), "
+          f"{D} contiguous point blocks: sharded vs single-device cameras {syn_cam:.3e} m (tolerance "
+          f"{MESH_CAM_TOL_M}), points {syn_pt:.3e} m (tolerance {MESH_PT_TOL_M}), ranks bit-equal "
+          f"{syn_got['ranks_bit_equal']}; single-device "
+          f"{ts_single['ms']:.3f} ms, over the mesh {ts_mesh['ms']:.3f} ms ({ts_mesh['host_enqueue_ms']:.3f} ms host "
+          f"enqueue)", flush=True)
+    if not (syn_got["ranks_bit_equal"] and syn_cam <= MESH_CAM_TOL_M and syn_pt <= MESH_PT_TOL_M):
+        _fail(f"mesh global BA (synthetic): sharded and single-device differ by {syn_cam} m (cameras) / "
+              f"{syn_pt} m (points), or the ranks differ")
+
+    def control(planted) -> dict:
+        """The checks of (a) and (a') on the same two maps over a mesh with a
+        planted fault (phase 13 (f)): which of them catch it."""
+        real = judged(dist_ba.optimize_global_ranks(sharded, planted, K, **iters), planted, single, n_c, n_p, owner)
+        synt = judged(dist_ba.optimize_global_ranks(syn_sharded, planted, Ks), planted, syn_single, n_sc, n_live,
+                      syn_owner)
+        steps = one_step(planted)
+        caught = {
+            "ranks_differ": not (real["ranks_bit_equal"] and synt["ranks_bit_equal"]),
+            "one_step_bounds": not steps["within_bounds"],
+            "chi2_limit": not (real["finite"] and real["chi2_rel"] <= MESH_CHI2_REL_TOL),
+            "synthetic_bounds": not (synt["cam_err_m"] <= MESH_CAM_TOL_M and synt["pt_err_m"] <= MESH_PT_TOL_M),
+        }
+        return {"map": dict({k: v for k, v in real.items() if k != "pt_d"}, one_step=steps["steps"]),
+                "synthetic": {k: v for k, v in synt.items() if k not in ("pt_d", "chi2_rel")}, "caught_by": caught}
+
+    # ---- (b) the edge-sharded pose graph on the drifted ring of phase 5
+    ring, _ = _ring_problem()
+    pg = pose_graph.PoseGraphProblem(**{k: torch.from_numpy(v).to(dev) for k, v in ring.items()})
+    pg_sharded = dist_pose_graph.shard_problem(pg, D, device=dev)
+    pg_iters = cfg.loop.essential_graph_iters
+    pg_single, tp_single = timed(lambda: pose_graph.optimize(pg, iters=pg_iters))
+    pg_ranks, tp_mesh = timed(lambda: dist_pose_graph.optimize_ranks(pg_sharded, mesh, iters=pg_iters))
+    pg_equal = all(torch.equal(a, b) for r in pg_ranks for a, b in zip(r, pg_ranks[0]))
+    got = pg_ranks[0]
+    t_err = float((got.v_t - pg_single.v_t).abs().max())
+    rs_err = max(float((got.v_R - pg_single.v_R).abs().max()), float((got.v_s - pg_single.v_s).abs().max()))
+    print(f"mesh pose graph (ring of {len(ring['v_s'])} vertices, {int(ring['e_mask'].sum())} edges, {pg_iters} GN "
+          f"x 60 PCG; {pg_sharded.e_i.shape[0] // D} edge slots per rank): sharded vs single-device t {t_err:.3e} "
+          f"(tolerance {MESH_PG_T_TOL_M}), R and s {rs_err:.3e} (tolerance {MESH_PG_RS_TOL}); cost "
+          f"{float(got.initial_cost):.6e} -> {float(got.final_cost):.6e} (single {float(pg_single.final_cost):.6e}); "
+          f"every rank bit-equal: {pg_equal}; single-device {tp_single['ms']:.3f} ms, over the mesh "
+          f"{tp_mesh['ms']:.3f} ms ({tp_mesh['host_enqueue_ms']:.3f} ms host enqueue)", flush=True)
+    if not pg_equal or not (t_err <= MESH_PG_T_TOL_M and rs_err <= MESH_PG_RS_TOL):
+        _fail("mesh pose graph: the ranks differ, or sharded and single-device differ beyond the tolerance")
+
+    # ---- (c) point migration on the card against the plain re-deal
+    rng = np.random.default_rng(13)
+    cases = {}
+    for name, R, live, spread in (("capacity", MIGRATE_R, 0.6, D), ("overflow", 64, 1.0, 2)):
+        rows = rng.normal(size=(D * R, 4)).astype(np.float32)
+        rows[:, 0] = np.arange(D * R)  # a point id, as the loop closer sends
+        mask = rng.random(D * R) < live
+        owner_m = rng.integers(0, spread, D * R).astype(np.int32)
+        got_rows, got_mask = map_shard.migrate_points(mesh, rows, mask, owner_m)
+        want_rows, want_mask = multihost_demo.redeal(rows, mask, owner_m, D)
+        equal = bool(np.array_equal(got_mask, want_mask) and got_rows.tobytes() == want_rows.tobytes())
+        cases[name] = {"rows": D * R, "live": int(mask.sum()), "landed": int(got_mask.sum()), "bit_equal": equal}
+        if not equal:
+            _fail(f"migrate_points ({name}): the card's re-deal differs from the plain one")
+    rows, mask, owner_m = (rng.normal(size=(D * MIGRATE_R, 4)).astype(np.float32), rng.random(D * MIGRATE_R) < 0.6,
+                           rng.integers(0, D, D * MIGRATE_R).astype(np.int32))
+    map_shard.migrate_points(mesh, rows, mask, owner_m)
+    _, t_mig = timed(lambda: map_shard.migrate_points(mesh, rows, mask, owner_m))
+    print(f"mesh migrate_points on the card vs the plain numpy re-deal: {json.dumps(cases)}; one call of "
+          f"{D * MIGRATE_R} rows {t_mig['ms']:.3f} ms (host to host), {t_mig['kernels']} kernels + "
+          f"{t_mig['copies']} copies", flush=True)
+    return {"gba": gba, "pose_graph": {"t_err": t_err, "rs_err": rs_err, "single": tp_single, "mesh": tp_mesh},
+            "migrate": dict(cases, timing=t_mig), "control": control}
+
+
+def _mesh_run(torch, dev, cfg, world, pairs_np, fast_cuda, trajectory, SlamSystem, main_fps: float) -> dict:
+    """Phase 13 (d): the 330 bench frames through a stereo SlamSystem whose
+    post-loop global BA runs over LocalMesh(8) on the card."""
+    from slam_framework_torch.parallel import LocalMesh
+
+    mesh = LocalMesh(MESH_RANKS, dev)
+    pairs = [torch.from_numpy(np.stack([l, r])).to(dev) for l, r in pairs_np]
+    system = SlamSystem(cfg, sensor="stereo", sync_every=SYNC, device=dev, mesh=mesh)
+    closer = system.loop_closer
+    host = {"dispatch_ms": [], "merge_ms": [], "migrate_ms": []}
+
+    def clocked(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key].append(1e3 * (time.perf_counter() - t0))
+        return wrapper
+
+    closer._dispatch_global_ba_sharded = clocked(closer._dispatch_global_ba_sharded, "dispatch_ms")
+    closer.apply_pending_gba = clocked(closer.apply_pending_gba, "merge_ms")
+    closer._migrate_after_gba = clocked(closer._migrate_after_gba, "migrate_ms")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in range(N_FRAMES):
+        system.track_stereo_device(pairs[f], world.timestamps[f])
+    system.tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = system.shutdown()
+    records = system.tracker.records
+    lost = [r.frame_id for r in records if r.lost]
+    est = system.frame_poses()
+    if est.shape != (N_FRAMES, 4, 4) or not np.isfinite(est).all():
+        _fail(f"mesh run: trajectory shape {est.shape} or non-finite poses")
+    ate = trajectory.ate_rmse(est, world.poses[:N_FRAMES], align="se3")
+    report = closer.last_report
+    gba, mig = report.get("gba", {}), report.get("migration")
+    timers = system.tracker.timers.summary()
+    loop_ms = timers.get("loop", {}).get("total_ms", float("nan"))
+    print(f"mesh run ({mesh!r}, SlamSystem(mesh=)): {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.3f} "
+          f"frames/s (phase 6, no mesh: {main_fps:.3f}); ATE {ate:.4f} m (bound {ATE_BOUND_M} m), lost {len(lost)} "
+          f"{lost}, resets {stats['resets']}, keyframes {stats['keyframes']}, map points {stats['map_points']}, loops "
+          f"closed {stats['loops_closed']} (edges {[(int(a), int(b)) for a, b, _ in closer.loop_edges]}); global BA "
+          f"{json.dumps(gba, default=float)}; migration {json.dumps(mig, default=float)}; host ms of the sharded "
+          f"dispatch {[round(x, 3) for x in host['dispatch_ms']]}, of the merges {[round(x, 3) for x in host['merge_ms']]} "
+          f"(migration {[round(x, 3) for x in host['migrate_ms']]}); {loop_ms:.1f} ms of the wall inside the loop "
+          f"stage ({100 * loop_ms / (1e3 * wall):.1f}%); fast_nms launches {launches}; peak device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"mesh run stage timers: {json.dumps(timers)}", flush=True)
+    if stats["loops_closed"] < 1:
+        _fail(f"mesh run: no loop closed: {report}")
+    if gba.get("devices") != MESH_RANKS or gba.get("shard_devices") != [str(dev)]:
+        _fail(f"mesh run: the global BA did not run sharded over {MESH_RANKS} ranks on {dev}: {gba}")
+    if mig is None or not mig["migrated_ok"]:
+        _fail(f"mesh run: the migration did not run or did not land: {mig}")
+    if lost or stats["resets"]:
+        _fail(f"mesh run: {len(lost)} lost frames, {stats['resets']} resets")
+    if not ate <= ATE_BOUND_M:
+        _fail(f"mesh run: ATE {ate} m above the bound {ATE_BOUND_M} m")
+    if launches != N_FRAMES:
+        _fail(f"mesh run: fast_nms launches {launches} != one per frame over {N_FRAMES} frames")
+    if not _state_on_card(system):
+        _fail("mesh run: a tracker, mapper or loop state tensor is off the CUDA device")
+    return {"launches": launches, "moved": mig["moved"], "fps": N_FRAMES / wall, "ate_m": ate,
+            "dispatch_ms": host["dispatch_ms"]}
+
+
+def _nccl_run(torch) -> None:
+    """Phase 13 (e): the 2-rank NCCL demo where two GPUs are visible."""
+    import subprocess
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"NCCL ranks: not run: {n} GPU visible, and a 2-rank NCCL mesh needs one GPU per rank", flush=True)
+        return
+    out = subprocess.run([sys.executable, "-m", "slam_framework_torch.tools.multihost_demo", "--processes", "2",
+                          "--device", "cuda"], capture_output=True, text=True, timeout=600)
+    line = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    print(f"NCCL ranks (2 processes, {n} GPUs visible): {line}", flush=True)
+    if out.returncode or not line.startswith("{") or not json.loads(line)["ok"]:
+        _fail(f"NCCL demo failed (rc {out.returncode}): {out.stderr[-2000:]}")
+
+
+def _planted_mesh(torch, LocalMesh, n: int, dev, site: str, fault: str):
+    """A LocalMesh with a fault planted in the sums of `optimize_global`
+    (phase 13 (f)). `site`: "schur_product" (the (C, 6) sums inside the CG),
+    "rhs" (the (C, 6) sum of the right-hand side) or "every_sum"; the sites
+    are told apart by their order inside one LM iteration: the (C, 27) camera
+    blocks, the right-hand side, the (C, 36) preconditioner, the CG's Schur
+    products, the costs. `fault`: "drop_rank" (the last rank adds zeros: a
+    lost contribution, the ranks stay bit-equal) or "unreduced" (the sum is
+    skipped: each rank keeps its own part)."""
+
+    class Planted(LocalMesh):
+        def __repr__(self) -> str:
+            return f"{super().__repr__()} with {fault} at {site}"
+
+        def all_reduce_sum(self, x):
+            local = self._local
+            if x.dim() == 2 and x.shape[1] in (27, 36):
+                local.after = x.shape[1]
+            at = None
+            if x.dim() == 2 and x.shape[1] == 6:
+                at = {27: "rhs", 36: "schur_product"}.get(getattr(local, "after", 0))
+            if site == "every_sum" or at == site:
+                if fault == "unreduced":
+                    return x
+                if self.rank() == self.size - 1:
+                    x = torch.zeros_like(x)
+            return super().all_reduce_sum(x)
+
+    return Planted(n, dev)
+
+
+def _mesh_controls(torch, dev, programs) -> dict:
+    """Phase 13 (f): the one-LM-step check of (a) on phase 6's map, and the
+    controls that show every check of (a) / (a') has teeth: the sharded
+    global BA of both maps runs over meshes with a planted fault
+    (MESH_CONTROLS), and each fault must be caught by at least one check.
+    Every reading is printed before any of these fails."""
+    from slam_framework_torch.parallel import LocalMesh
+
+    out = {}
+    for site, fault in MESH_CONTROLS:
+        got = programs["control"](_planted_mesh(torch, LocalMesh, MESH_RANKS, dev, site, fault))
+        out[f"{fault}@{site}"] = got
+        print(f"mesh control, {fault} at {site}: phase 6's map {json.dumps(got['map'])}; synthetic map "
+              f"{json.dumps(got['synthetic'])}; caught by {json.dumps(got['caught_by'])}", flush=True)
+    step = programs["gba"]["one_step"]
+    if not step["within_bounds"]:
+        _fail(f"mesh global BA: one LM step on phase 6's map, sharded against single-device: {step['steps']}")
+    for name, got in out.items():
+        if not any(got["caught_by"].values()):
+            _fail(f"mesh control: {name} passes every check of phase 13 (a)")
+    return out
+
+
 _WORLD = None   # the bench world of a render worker
 _WORLD8 = None  # the figure-eight world of a render worker
 
@@ -1219,7 +1673,7 @@ def main() -> None:
 
 
 def _phases(torch, pool) -> None:
-    """Phases 2-12 and the final lines."""
+    """Phases 2-13 and the final lines."""
     from slam_framework_torch import BUILD_DIR, native
     from slam_framework_torch.config import SlamConfig
     from slam_framework_torch.io import trajectory
@@ -1439,6 +1893,12 @@ def _phases(torch, pool) -> None:
 
     # ---- 12. a KITTI-layout sequence through the stereo runner
     kitti = _kitti_run(torch, dev, world, pairs_np, fast_cuda, os.path.join(BUILD_DIR, "smoke_kitti"))
+
+    # ---- 13. the distributed layer on the card: sharded programs, then the live run over the mesh
+    programs = _mesh_programs(torch, dev, cfg, map_path)
+    mesh = _mesh_run(torch, dev, cfg, world, pairs_np, fast_cuda, trajectory, SlamSystem, main_fps)
+    _nccl_run(torch)
+    _mesh_controls(torch, dev, programs)
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1461,6 +1921,7 @@ def _phases(torch, pool) -> None:
         "launches_mono_run": mono["launches"],
         "launches_figure_eight_run": figure8["launches"],
         "launches_kitti_run": kitti["launches"],
+        "launches_mesh_run": mesh["launches"],
         "ms_8_images": kernel8_ms,
         "ms_8_images_l2_flushed": flushed8_ms,
         "plain_ms_8_images": plain8_ms,

@@ -57,10 +57,16 @@ def ba_problem(src, device=None) -> BAProblem:
 
 
 def pose_graph_problem(src, device=None) -> PoseGraphProblem:
+    """A reference PoseGraphProblem, whole or sharded (`dist_pose_graph.shard_problem`:
+    the edge arrays are the concatenation of the shard blocks, as the port's)."""
     return _named(PoseGraphProblem, src, device)
 
 
 def global_ba_problem(src, device=None) -> GlobalBAProblem:
+    """A reference GlobalBAProblem, whole or sharded (`dist_ba.shard_problem`:
+    point and observation arrays concatenated by shard, cam_obs_slots (D, C, Oc),
+    as the port's `parallel/dist_ba.shard_problem` lays them out). A sharded
+    jax.Array of a mesh in this process converts as a whole."""
     return _named(GlobalBAProblem, src, device)
 
 

@@ -23,11 +23,16 @@ Nothing inside `optimize_global` reads a value back to the host (accept/reject
 and the damping are `torch.where`s, the 6x6 blocks are inverted without a
 status check), so the call only enqueues work: the loop closer dispatches it
 and fetches the result at a later keyframe.
+
+This is also the program the distributed layer shards (parallel/dist_ba.py):
+each rank of a mesh runs it on its block of points and observations, and its
+`allreduce=` hook sums every camera-space reduction and every cost over the
+ranks, where the reference psums over its `axis_name`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +71,10 @@ class GlobalBAResult(NamedTuple):
     total_chi2: torch.Tensor
 
 
+def _identity(x):
+    return x
+
+
 def _pcg_cam(hvp, b, Minv, iters: int):
     """Block-Jacobi preconditioned CG on the (C, 6) camera system."""
 
@@ -97,7 +106,15 @@ def optimize_global(
     iters_second: int = 10,
     cg_iters: int = 60,
     lam0: float = 1e-4,
+    allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> GlobalBAResult:
+    """allreduce: None for the whole problem on one device. Set, the problem's
+    point and observation tensors are one rank's shard (parallel/dist_ba.py)
+    and every camera-space sum and every cost is passed through it (the sum
+    over the ranks, `RankMesh.all_reduce_sum`) where the reference psums over
+    its `axis_name`: the camera state stays replicated, bit-equal on every
+    rank."""
+    red = allreduce if allreduce is not None else _identity
     C = prob.cam_pose.shape[0]
     dev, f32 = prob.cam_pose.device, torch.float32
     is_stereo = prob.obs_ur >= 0.0
@@ -155,10 +172,10 @@ def optimize_global(
             ru, rv, rur = r_u[:, None], r_v[:, None], r_ur[:, None]
 
             # Hcc (21 unique) + bc (6), summed per camera
-            per_cam = per_camera(torch.cat([
+            per_cam = red(per_camera(torch.cat([
                 w_uv * (Du[:, I6] * Du[:, J6] + Dv[:, I6] * Dv[:, J6]) + w_ur * Dur[:, I6] * Dur[:, J6],
                 w_uv * (Du * ru + Dv * rv) + w_ur * Dur * rur,
-            ], dim=1))
+            ], dim=1)))
             Hcc = per_cam[:, IDX6]  # (C, 6, 6)
             bc = per_cam[:, 21:27]
 
@@ -184,17 +201,17 @@ def optimize_global(
                 v = v * free_f
                 a_p = per_point(torch.einsum("mij,mi->mj", W, v[obs_cam]))          # (P, 3)
                 b_p = torch.einsum("pij,pj->pi", Hpp_inv, a_p)
-                sub = per_camera(torch.einsum("mij,mj->mi", W, b_p[obs_pt]))        # (C, 6)
+                sub = red(per_camera(torch.einsum("mij,mj->mi", W, b_p[obs_pt])))   # (C, 6)
                 out = torch.einsum("cij,cj->ci", Hcc_d, v) - sub
                 return out * free_f + (1.0 - free_f) * v
 
             # rhs = bc - W Hpp^-1 bp
             q_rhs = torch.einsum("mij,mj->mi", W, torch.einsum("mij,mj->mi", Hpi_of_obs, bp[obs_pt]))
-            rhs = (bc - per_camera(q_rhs)) * free_f
+            rhs = (bc - red(per_camera(q_rhs))) * free_f
 
             # block-Jacobi preconditioner: diag(S) ~ Hcc_d - sum_obs W Hpp^-1 W^T
             diag_sub = torch.einsum("mij,mjk,mlk->mil", W, Hpi_of_obs, W).reshape(-1, 36)
-            S_diag = Hcc_d - per_camera(diag_sub).reshape(C, 6, 6)
+            S_diag = Hcc_d - red(per_camera(diag_sub)).reshape(C, 6, 6)
             Minv = torch.linalg.inv_ex(S_diag + 1e-5 * eye6)[0]
 
             dxc = -_pcg_cam(schur_mv, rhs, Minv, cg_iters) * free_f
@@ -210,7 +227,7 @@ def optimize_global(
             chi2_new = _chi2_scalars(ru2, rv2, rur2, z2, prob, is_stereo)
             # acceptance compares only observations in front on BOTH sides
             cmp_ok = active & (z > 1e-2) & (z2 > 1e-2)
-            improved = clipped_sum(chi2_new, cmp_ok) < clipped_sum(chi2, cmp_ok)
+            improved = red(clipped_sum(chi2_new, cmp_ok)) < red(clipped_sum(chi2, cmp_ok))
             cam_pose = torch.where(improved, new_cam, cam_pose)
             pt_pos = torch.where(improved, new_pt, pt_pos)
             lam = torch.clamp(torch.where(improved, lam * 0.5, lam * 5.0), 1e-8, 1e5)
@@ -222,7 +239,7 @@ def optimize_global(
     cam_pose, pt_pos = lm_iters(cam_pose, pt_pos, active1, iters_second)
     chi2 = chi2_of(cam_pose, pt_pos)
     inlier = prob.obs_mask & (chi2 <= delta2)
-    total = torch.sum(torch.where(inlier, chi2, zero))
+    total = red(torch.sum(torch.where(inlier, chi2, zero)))
     return GlobalBAResult(
         cam_pose=se3.reorthonormalize(cam_pose), pt_pos=pt_pos,
         obs_inlier=inlier, chi2=chi2, total_chi2=total,

@@ -24,11 +24,15 @@ The per-vertex sums are products with a (V, E) one-hot matrix, never a
 scatter-add: on a GPU a scatter-add is made of atomics whose order changes
 from run to run, and the step is accepted on a comparison of two costs that
 is sensitive to the order of summation. Two runs give the same bits.
+
+The distributed layer (parallel/dist_pose_graph.py) runs `optimize` on each
+rank's block of edges, its `allreduce=` hook summing the edge-indexed sums over
+the ranks.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -92,6 +96,10 @@ def edge_res_jac(Si: dict, Sj: dict, Sji: dict):
     return r, J[:, :, :7], J[:, :, 7:]
 
 
+def _identity(x):
+    return x
+
+
 def _pcg_block(hvp, g, Minv, iters: int):
     """CG with a block-diagonal preconditioner. g, x: (V, 7); Minv: (V, 7, 7)."""
 
@@ -116,10 +124,18 @@ def _pcg_block(hvp, g, Minv, iters: int):
     return x
 
 
-def optimize(prob: PoseGraphProblem, iters: int = 20, cg_iters: int = 60, damping: float = 1e-6) -> PoseGraphResult:
+def optimize(prob: PoseGraphProblem, iters: int = 20, cg_iters: int = 60, damping: float = 1e-6,
+             allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> PoseGraphResult:
     """Gauss-Newton over the Sim3 pose graph (20 iterations with identity
     information, as optimizer.cpp:718-960; GN with a tiny damping, the graph
-    being anchored by the fixed loop keyframe). iters >= 1."""
+    being anchored by the fixed loop keyframe). iters >= 1.
+
+    allreduce: None for the whole graph on one device. Set, the edge table is
+    one rank's shard (parallel/dist_pose_graph.py) and every edge-indexed sum
+    (cost, gradient, block diagonal, Hessian-vector product) is passed through
+    it (`RankMesh.all_reduce_sum`) where the reference psums over its
+    `axis_name`: the vertex state stays replicated on every rank."""
+    red = allreduce if allreduce is not None else _identity
     V = prob.v_R.shape[0]
     dev, f32 = prob.v_R.device, torch.float32
     free = (~prob.v_fixed) & prob.v_mask
@@ -146,23 +162,23 @@ def optimize(prob: PoseGraphProblem, iters: int = 20, cg_iters: int = 60, dampin
         Sj = _s(R[ej], t[ej], s[ej])
         r, Ji, Jj = edge_res_jac(Si, Sj, Sji)  # (E,7), (E,7,7), (E,7,7)
         r = r * ew[:, None]
-        cost = torch.sum(r * r)
+        cost = red(torch.sum(r * r))
         if initial_cost is None:
             initial_cost = cost
 
         # gradient: g[v] = sum_e J^T r over the edges at v
         gi = torch.einsum("eij,ei->ej", Ji, r) * ew[:, None]
         gj = torch.einsum("eij,ei->ej", Jj, r) * ew[:, None]
-        g = per_vertex(gi, gj) * free_f
+        g = red(per_vertex(gi, gj)) * free_f
 
         # block diagonal of H, for the preconditioner
         Hi = torch.einsum("eij,eik->ejk", Ji, Ji) * ew[:, None, None]
         Hj = torch.einsum("eij,eik->ejk", Jj, Jj) * ew[:, None, None]
-        Minv = torch.linalg.inv_ex(per_vertex(Hi, Hj) + 1e-6 * eye7)[0]
+        Minv = torch.linalg.inv_ex(red(per_vertex(Hi, Hj)) + 1e-6 * eye7)[0]
 
         def hvp(v):
             u = (torch.einsum("eij,ej->ei", Ji, v[ei]) + torch.einsum("eij,ej->ei", Jj, v[ej])) * ew[:, None]
-            out = per_vertex(torch.einsum("eij,ei->ej", Ji, u), torch.einsum("eij,ei->ej", Jj, u))
+            out = red(per_vertex(torch.einsum("eij,ei->ej", Ji, u), torch.einsum("eij,ei->ej", Jj, u)))
             return out * free_f + damping * v
 
         dx = -_pcg_block(hvp, g, Minv, cg_iters) * free_f
@@ -174,7 +190,7 @@ def optimize(prob: PoseGraphProblem, iters: int = 20, cg_iters: int = 60, dampin
         s2 = torch.where(free, Snew["s"], s)
 
         r2 = edge_residuals(_s(R2[ei], t2[ei], s2[ei]), _s(R2[ej], t2[ej], s2[ej]), Sji) * ew[:, None]
-        cost2 = torch.sum(r2 * r2)
+        cost2 = red(torch.sum(r2 * r2))
         # accept with a small RELATIVE tolerance: a strict `<` is sensitive to
         # the rounding of the two sums
         better = cost2 < cost * (1.0 + 1e-6)

@@ -1,7 +1,7 @@
 """Loop-closing stage: BoW detection -> Sim3 verification -> correction + pose graph.
 
-Port of the single-device path of slam_framework_tpu/pipeline/loop_closer.py,
-after the LoopCloser thread (src/core/loop_closer.{h,cpp}): DetectLoop with
+Port of slam_framework_tpu/pipeline/loop_closer.py, after the LoopCloser
+thread (src/core/loop_closer.{h,cpp}): DetectLoop with
 covisibility-consistency voting (:194-297), ComputeSim3 (:299-469),
 CorrectLoop (Sim3 propagation to the covisible group, fusion,
 essential-graph optimisation, :501-695) and the follow-up global BA
@@ -18,9 +18,16 @@ one otherwise. A BoW transform is fetched one keyframe after it was enqueued
 and the global BA at a later keyframe (`apply_pending_gba`): neither is waited
 for where it is launched.
 
+Given a rank mesh of more than one rank (`mesh=`, parallel/mesh.py), the
+post-loop global BA runs as one SPMD program over it: points are dealt to the
+ranks by covisibility segment (parallel/map_shard.py), each rank reduces its
+landmark blocks and the camera system is summed across the ranks
+(parallel/dist_ba.py); after the merge, point ownership is recomputed and the
+moved rows are re-dealt with one all_to_all. A mesh of one rank takes the
+single-device path.
+
 Not carried over: the fetch registry that folds the BoW transform into the
-tracker's drain, the shared program cache, and the device mesh with the
-sharded global BA and point migration.
+tracker's drain and the shared program cache.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from slam_framework_torch.geometry.projection import Intrinsics
 from slam_framework_torch.map.arena import MapArena
 from slam_framework_torch.matching import hamming, matcher
 from slam_framework_torch.optim import global_ba, pose_graph
+from slam_framework_torch.parallel import dist_ba, map_shard
+from slam_framework_torch.parallel.mesh import RankMesh, canonical_device
 from slam_framework_torch.pipeline import track_ops
 from slam_framework_torch.pipeline.kf_store import DeviceKFStore
 from slam_framework_torch.solvers import sim3solver
@@ -107,10 +116,15 @@ class LoopCloser:
         vocab: Optional[bow_vocab.Vocabulary] = None,
         kf_store: Optional[DeviceKFStore] = None,
         device=None,
+        mesh: Optional[RankMesh] = None,
     ):
         """device: where the stage's programs run. None means the device of
         `kf_store` when one is given, else the first CUDA device (raising when
-        there is none); the CPU only when the caller passes it."""
+        there is none); the CPU only when the caller passes it.
+
+        mesh: a rank mesh on that device; with more than one rank the
+        post-loop global BA runs sharded over it and point ownership migrates
+        after each merge. A mesh on another device raises."""
         self.cfg = cfg
         self.arena = arena
         self.K = K
@@ -118,6 +132,10 @@ class LoopCloser:
         if device is None and kf_store is not None:
             device = kf_store.device
         self.device = resolve_device(device)
+        if mesh is not None and canonical_device(mesh.device) != canonical_device(self.device):
+            raise ValueError(f"the mesh {mesh!r} is not on the loop closer's device {self.device}")
+        self.mesh = mesh
+        self.partition: Optional[map_shard.MapPartition] = None  # the live map partition
         # Device-resident keyframe feature store: BoW, descriptor matching and
         # the Sim3-guided programs gather keyframe features by INDEX
         self.kf_store = kf_store if kf_store is not None else DeviceKFStore(
@@ -700,6 +718,9 @@ class LoopCloser:
         """Enqueue the global BA on the device and return: its result is
         fetched by apply_pending_gba at a later keyframe. Nothing between here
         and there reads it back."""
+        if self.mesh is not None and self.mesh.size > 1:
+            self._dispatch_global_ba_sharded(kf)
+            return
         arena = self.arena
         prob, cams, pids = global_ba.build_global_problem(arena, self.cfg, device=self.device)
         res = global_ba.optimize_global(
@@ -714,6 +735,33 @@ class LoopCloser:
             "n_pts": arena.num_pts,
         }
 
+    def _dispatch_global_ba_sharded(self, kf: int) -> None:
+        """The post-loop global BA as ONE SPMD program over the mesh: points
+        are dealt to the ranks by covisibility segment (map_shard.partition_arena),
+        each rank reduces its landmark blocks and the camera system is summed
+        over the ranks. As asynchronous as the single-device path: the rank
+        programs are enqueued when this returns, nothing is read back, and the
+        result merges in apply_pending_gba, followed by the migration of point
+        ownership."""
+        arena, mesh = self.arena, self.mesh
+        m = map_shard.shard_map_problem(arena, self.cfg, mesh)
+        per_rank = dist_ba.optimize_global_ranks(
+            m.sharded, mesh, self.K, iters_first=0, iters_second=self.cfg.loop.global_ba_iters
+        )
+        self._gba_pending = {
+            "kf": kf,
+            "res": dist_ba.assemble(mesh, per_rank),
+            "cams": m.cams,
+            "pids": m.pids,
+            "n_kfs": arena.num_kfs,
+            "n_pts": arena.num_pts,
+            "owner": m.owner,
+            "n_shards": mesh.size,
+            "partition": m.partition,
+            # where the shards and the ranks' results live (no device read)
+            "shard_devices": sorted({str(t.device) for t in list(m.sharded) + [t for r in per_rank for t in r]}),
+        }
+
     def apply_pending_gba(self) -> bool:
         """Merge an in-flight global BA into the (possibly grown) map, the
         merge step of RunGlobalBundleAdjustment (loop_closer.cpp:87-171):
@@ -721,7 +769,8 @@ class LoopCloser:
         ran are corrected through their strongest covisible parent in the problem
         (spanning-tree child update); points in the problem adopt GBA positions;
         younger points are corrected through their first observing keyframe.
-        Returns True if a result was applied."""
+        A sharded result is put back in point order first, and ownership
+        migrates after the merge. Returns True if a result was applied."""
         pending = self._gba_pending
         if pending is None:
             return False
@@ -731,6 +780,9 @@ class LoopCloser:
         # the one place that waits for the global BA
         new_cam, new_pt, total_chi2 = (t.cpu().numpy() for t in (res.cam_pose, res.pt_pos, res.total_chi2))
         cams, pids = pending["cams"], pending["pids"]
+        n_shards = pending.get("n_shards", 1)
+        if "owner" in pending:
+            new_pt = dist_ba.unshard_points(new_pt, len(pids), n_shards, pending["owner"])
         cam_rank = {int(c): i for i, c in enumerate(cams)}
         n_now = arena.num_kfs
 
@@ -783,12 +835,69 @@ class LoopCloser:
         # 4. keyframe poses
         for c, T in post.items():
             arena.kf_pose[c] = T.astype(np.float32)
-        self.last_report.update(
-            {"gba": {"cams": len(cams), "points": len(pids),
-                     "chi2": float(total_chi2), "merged_kfs": len(post) - len(in_prob)}}
-        )
+        gba = {"cams": len(cams), "points": len(pids), "chi2": float(total_chi2),
+               "merged_kfs": len(post) - len(in_prob), "devices": n_shards}
+        if "shard_devices" in pending:
+            gba["shard_devices"] = pending["shard_devices"]
+        self.last_report.update({"gba": gba})
         self.gba_log.append({"kf": pending["kf"], "outcome": "merged"})
+        if "partition" in pending:
+            self._migrate_after_gba(pending)
         return True
+
+    def _migrate_after_gba(self, pending) -> None:
+        """Point-ownership migration after the merge: loop fusion moved
+        observations across covisibility segments, so ownership is recomputed
+        from the merged map and the rows of the moved points (id, position) are
+        re-dealt across the mesh with ONE all_to_all (map_shard.migrate_points),
+        where the global BA's merge lands, never on the per-frame path. The
+        report says whether every row landed on the rank that now owns it."""
+        arena, mesh = self.arena, self.mesh
+        n = pending["n_shards"]
+        old = pending["partition"]
+        new_part = map_shard.partition_arena(arena, n)
+        pids = np.nonzero(arena.pt_valid[: arena.num_pts])[0]
+        report = {"points": int(len(pids)), "moved": 0, "migrated_ok": True}
+        if len(pids):
+            old_tab = old.owner_of_pt
+            in_old = pids < len(old_tab)
+            old_owner = np.where(in_old, old_tab[np.minimum(pids, len(old_tab) - 1)], -1)
+            new_owner = (new_part.owner_of_pt[pids] % n).astype(np.int32)
+            # rows live on their old owner's rank; points born after the old
+            # partition start on their new owner (nothing to move)
+            cur_owner = np.where(old_owner >= 0, old_owner % n, new_owner)
+            moved = cur_owner != new_owner
+            report["moved"] = int(moved.sum())
+            if moved.any():
+                # re-deal only the MOVED (pid, x, y, z) rows; the capacity covers
+                # the worst of the source and destination ranks' loads
+                mv = np.nonzero(moved)[0]
+                src, dst = cur_owner[mv], new_owner[mv]
+                load = np.maximum(np.bincount(src, minlength=n), np.bincount(dst, minlength=n))
+                R = global_ba._next_pow2(int(load.max()))
+                rows = np.zeros((n * R, 4), np.float32)
+                mask = np.zeros(n * R, bool)
+                dest = np.zeros(n * R, np.int32)
+                order = np.argsort(src, kind="stable")
+                so = src[order]
+                local = np.arange(len(mv)) - np.searchsorted(so, so)
+                gidx = so * R + local
+                rows[gidx, 0] = pids[mv][order].astype(np.float32)
+                rows[gidx, 1:4] = arena.pt_pos[pids[mv][order]]
+                mask[gidx] = True
+                dest[gidx] = dst[order]
+                rows2, mask2 = map_shard.migrate_points(mesh, rows, mask, dest)
+                # every live row must have landed on the rank that now owns it
+                got = np.nonzero(mask2)[0]
+                owner_tab = np.full(arena.num_pts, -1, np.int32)
+                owner_tab[pids] = new_owner
+                report["migrated_ok"] = bool(
+                    (owner_tab[rows2[got, 0].astype(np.int64)] == got // R).all()
+                    and mask2.sum() == mask.sum()
+                )
+        self.partition = new_part
+        report.update(new_part.stats())
+        self.last_report["migration"] = report
 
     # ------------------------------------------------------------------ pose graph
 

@@ -11,7 +11,10 @@ owns the local mapper (pipeline/local_mapper.py); every new keyframe is handed
 to the loop closer (pipeline/loop_closer.py) before the mapper processes it,
 and a lost frame to the relocalizer (pipeline/relocalization.py) built from
 the loop closer. `cfg.use_viewer` starts a MapPublisher thread
-(viz/publisher.py) that snapshots the host-side map for live viewers.
+(viz/publisher.py) that snapshots the host-side map for live viewers. Given a
+rank mesh (`mesh=`, parallel/mesh.py) of more than one rank, the post-loop
+global BA runs sharded over it and point ownership migrates after each merge
+(pipeline/loop_closer.py); the mesh lives on the system's device.
 
 The vocabulary is `cfg.vocabulary_path` or the shipped asset; when no file
 loads, one is trained online from the first keyframes' descriptors, and place
@@ -31,6 +34,7 @@ from slam_framework_torch.bow import vocabulary as bow_vocab
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.io import checkpoint, trajectory
 from slam_framework_torch.map.arena import MapArena
+from slam_framework_torch.parallel.mesh import RankMesh, canonical_device
 from slam_framework_torch.pipeline.loop_closer import LoopCloser
 from slam_framework_torch.pipeline.mono_tracker import MonoTracker
 from slam_framework_torch.pipeline.relocalization import Relocalizer
@@ -39,7 +43,8 @@ from slam_framework_torch.viz import MapPublisher
 
 
 class SlamSystem:
-    """User-facing engine. One instance per camera stream, on one device."""
+    """User-facing engine. One instance per camera stream, on one device (whose
+    post-loop global BA may run over a rank mesh on that device)."""
 
     VOCAB_TRAIN_AT_KFS = 6       # train the online vocabulary once this many keyframes exist
     RESET_IF_LOST_BELOW_KFS = 5  # tracker.cpp:613-620
@@ -48,7 +53,8 @@ class SlamSystem:
 
     def __init__(self, cfg: Optional[SlamConfig] = None, config_path: Optional[str] = None,
                  sensor: Optional[str] = None, sync_every: int = 4,
-                 device: Optional[torch.device] = None, place_recognition: bool = True):
+                 device: Optional[torch.device] = None, place_recognition: bool = True,
+                 mesh: Optional[RankMesh] = None):
         """cfg, or config_path: a JSON file of the reference's schema
         (`SlamConfig.from_json`); sensor overrides the config's.
 
@@ -57,7 +63,13 @@ class SlamSystem:
         CPU is taken only when the caller passes it.
 
         place_recognition=False runs tracking and mapping alone: no
-        vocabulary is loaded or trained, and there is no loop closer."""
+        vocabulary is loaded or trained, and there is no loop closer.
+
+        mesh: a rank mesh on `device` (e.g. `LocalMesh(8, device)`), handed to
+        the loop closer whenever it is built. With more than one rank the
+        post-loop global BA runs as one sharded program over it, with point
+        ownership migrated after the merge; one rank takes the single-device
+        path. A mesh on another device raises."""
         if cfg is None:
             if config_path is None:
                 raise ValueError("provide cfg or config_path")
@@ -69,6 +81,9 @@ class SlamSystem:
         self.cfg = cfg
         self.sync_every = sync_every
         self.device = resolve_device(device)
+        if mesh is not None and canonical_device(mesh.device) != canonical_device(self.device):
+            raise ValueError(f"the mesh {mesh!r} is not on the system's device {self.device}")
+        self.mesh = mesh
         self.place_recognition = place_recognition
         self.vocab: Optional[bow_vocab.Vocabulary] = None
         if place_recognition:
@@ -207,7 +222,8 @@ class SlamSystem:
 
     def _activate_place_recognition(self) -> None:
         mapper = self.tracker.local_mapper
-        self.loop_closer = LoopCloser(self.cfg, self.arena, self.tracker.K, self.vocab, kf_store=mapper.kf_store)
+        self.loop_closer = LoopCloser(self.cfg, self.arena, self.tracker.K, self.vocab, kf_store=mapper.kf_store,
+                                      mesh=self.mesh)
 
         def _forget(k: int) -> None:
             self.loop_closer.db.erase(k)

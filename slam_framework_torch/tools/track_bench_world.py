@@ -32,6 +32,13 @@ global BAs' outcomes.
 (`multi_loop_config`: 640x240, 800 features, 4 levels) in place of `SlamConfig()`;
 `--world figure8 --geometry multi-loop` gives `chip_smoke.py`'s phase 11 bound
 (`tools/ref_figure_eight_world.py` is the reference's run of the same pixels).
+`--mesh N` hands the system a `LocalMesh(N)` on its device: the post-loop
+global BA runs sharded over N ranks and point ownership migrates after the
+merge; the line then carries the global BA's `devices` and the migration's
+report (`chip_smoke.py` phase 13 is this run on the card):
+
+    python -m slam_framework_torch.tools.track_bench_world --mesh 8
+    python -m slam_framework_torch.tools.track_bench_world --mesh 8 --device cpu
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import time
 import numpy as np
 import torch
 
+from slam_framework_torch import resolve_device
 from slam_framework_torch.config import CameraConfig, CapacityConfig, OrbConfig, SlamConfig
 from slam_framework_torch.io import synthetic, trajectory
+from slam_framework_torch.parallel import LocalMesh
 from slam_framework_torch.system import SlamSystem
 
 
@@ -161,6 +170,7 @@ def main() -> None:
     ap.add_argument("--no-loop-closer", action="store_true", help="tracking and mapping alone")
     ap.add_argument("--blackout", default="", help="A-B: frames A..B (inclusive) become a blank gray pair")
     ap.add_argument("--sensor", default="stereo", choices=("stereo", "rgbd", "monocular"))
+    ap.add_argument("--mesh", type=int, default=0, help="N: the post-loop global BA over LocalMesh(N) on the device")
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -172,8 +182,11 @@ def main() -> None:
     else:
         args.frames = args.frames or 330
         world = bench_world(cfg, num_frames=max(args.frames, 330))
+    mesh = None
+    if args.mesh:
+        mesh = LocalMesh(args.mesh, resolve_device(args.device))
     system = SlamSystem(cfg, sensor=args.sensor, sync_every=args.sync, device=args.device,
-                        place_recognition=not args.no_loop_closer)
+                        place_recognition=not args.no_loop_closer, mesh=mesh)
     blackout = parse_blackout(args.blackout)
     if blackout and args.sensor != "stereo":
         ap.error("--blackout takes the stereo sensor")
@@ -188,7 +201,7 @@ def main() -> None:
     est = system.frame_poses()
     records = system.tracker.records
     print(json.dumps({
-        "device": str(system.device), "world": args.world, "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
+        "device": str(system.device), "mesh": repr(mesh) if mesh else None, "world": args.world, "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
         "wall_s_with_rendering": wall, "frames_per_s_with_rendering": args.frames / wall,
         "ate_m": (trajectory.ate_rmse(est, world.poses[: args.frames], align="se3")
                   if args.sensor != "monocular" and len(est) == args.frames else None),

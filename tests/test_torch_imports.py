@@ -47,7 +47,8 @@ want = ["geometry.triangulation", "optim.local_ba", "pipeline.kf_store", "pipeli
         "optim.global_ba", "pipeline.loop_closer", "tools.bench_torch",
         "solvers.pnp", "pipeline.relocalization", "io.checkpoint",
         "io.png", "io.kitti", "viz.publisher", "examples.main_stereo", "examples.main_mono",
-        "examples.main_rgbd"]
+        "examples.main_rgbd", "parallel.mesh", "parallel.dist_ba", "parallel.dist_pose_graph",
+        "parallel.map_shard", "parallel.multihost", "tools.multihost_demo"]
 missing = [w for w in want if "slam_framework_torch." + w not in sys.modules]
 print(json.dumps({"modules": len(mods), "missing": missing, "frames": len(s.tracker.records),
                   "lost": sum(r.lost for r in s.tracker.records), "bad": bad,
