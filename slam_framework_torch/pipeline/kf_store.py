@@ -24,12 +24,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_framework_torch import resolve_device
+
 PACK_W = 9
 
 
 class DeviceKFStore:
     def __init__(self, max_keyframes: int, max_features: int, device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        """device: None means the first CUDA device, an error when there is none."""
+        self.device = resolve_device(device)
         K, N = max_keyframes, max_features
         self.packs = torch.zeros((K, N, PACK_W), dtype=torch.float32, device=self.device)
         self.descs = torch.zeros((K, N, 8), dtype=torch.int32, device=self.device)

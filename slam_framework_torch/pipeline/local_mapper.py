@@ -14,12 +14,24 @@ triangulation before BA, BA results first in first out. The launches return
 before the device has finished, so the host goes on while the card works.
 The host parts are numpy on the arena, as in the reference.
 
+`process_keyframe` has a critical part (the write-backs and point culling,
+which the tracker's block rebuild must see) and a heavy stage (triangulation
+and local-BA launches, keyframe culling). Given the tracker's deferral queue
+(`defer_queue`, at pipeline depth 2) the heavy stage is queued there and runs
+after the tracker has launched its next chunk, as in the reference. One
+departure: a heavy stage first lands the triangulation and the BA an earlier
+keyframe's stage launched (the "block" write-back policy). The reference lets
+a chunk's second keyframe assemble its BA on poses its first keyframe's BA has
+not yet refined and lands both BAs at the next fetch, the later one
+overwriting the earlier's cameras; on the bench world that weakened the map
+enough to lose the blackout run again after its relocalization on an H100
+(PERF.md). Serially, and in a chunk with one keyframe, nothing changes.
+
 Monocular keyframes get no points but by triangulation, so for them the stage
 is synchronous, as in the reference: every pending result is written back when
-the keyframe arrives, its triangulation and fusion are applied at once, and the
-triangulation's minimum baseline is 0.01 (scale-free map units) in place of the
-stereo baseline. The reference's deferral queue is not carried (the port's
-tracker runs the heavy stage inline, in the order of the reference's serial path).
+the keyframe arrives, the heavy stage is never queued, its triangulation and
+fusion are applied at once, and the triangulation's minimum baseline is 0.01
+(scale-free map units) in place of the stereo baseline.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_framework_torch import resolve_device
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry.projection import Intrinsics
 from slam_framework_torch.map.arena import MapArena
@@ -55,13 +68,14 @@ class LocalMapper:
     BA_DIVERGENCE_ABORT_FRAC = 0.15
 
     def __init__(self, cfg: SlamConfig, arena: MapArena, K: Intrinsics, timers=None, device=None):
-        """device: the tracker's device; the mapper's own follows from it and
+        """device: the tracker's device (None: the first CUDA device, an error
+        when there is none); the mapper's own follows from it and
         `cfg.mapping.device_index` (see `mapper_device`)."""
         self.cfg = cfg
         self.arena = arena
         self.K = K
         self.timers = timers if timers is not None else StageTimers()
-        self.device = mapper_device(device if device is not None else "cpu", cfg.mapping.device_index)
+        self.device = mapper_device(resolve_device(device), cfg.mapping.device_index)
         self.recent_points: list[tuple[int, int]] = []  # (pid, created_at_kf)
         self.on_erase_keyframe = None  # hook: notify place-recognition database
         # Device-resident keyframe feature store: triangulation/fuse dispatches
@@ -119,7 +133,8 @@ class LocalMapper:
 
     # ------------------------------------------------------------------ main entry
 
-    def process_keyframe(self, kf: int, prefetched_ba=None, prefetched_tri=None, prefetched_fuse=None) -> None:
+    def process_keyframe(self, kf: int, prefetched_ba=None, prefetched_tri=None, prefetched_fuse=None,
+                         defer_queue=None) -> None:
         """ProcessNewKeyFrame + culling + triangulation + local BA + KF culling
         (the LocalMapper::Run loop, local_mapper.cpp:27-87).
 
@@ -129,7 +144,10 @@ class LocalMapper:
         a separate thread with the tracker proceeding on bounded-stale map
         state. The tracker reads the results back with its per-chunk drain
         (prefetched_*), so keyframe processing does not wait for the device.
-        Callers that need settled state (export) call finalize()."""
+        Callers that need settled state (export) call finalize().
+
+        defer_queue: a list that takes the heavy stage as ("mapper", fn)
+        instead of running it here (stereo and RGB-D; monocular runs it here)."""
         # Pending-write-back policy (config.MappingConfig.{ba,trifuse}_writeback).
         # "block" = apply all pendings here, waiting for the device if the drain
         # did not already fetch them; "lag" lets a same-chunk second keyframe's
@@ -161,8 +179,30 @@ class LocalMapper:
         # keyframe's evidence just condemned. It is cheap vectorized numpy.
         with self.timers.time("mapper/cull_points"):
             self._cull_points(kf)
-        # The heavy stage: triangulation/fusion dispatch + local-BA dispatch +
-        # keyframe culling (problem assembly is numpy over the full window).
+        if defer_queue is not None and not self._sync:
+            defer_queue.append(("mapper", lambda: self._heavy_stage(kf)))
+        else:
+            self._heavy_stage(kf)
+
+    def _heavy_stage(self, kf: int) -> None:
+        """Triangulation/fusion dispatch + local-BA dispatch + keyframe culling
+        (problem assembly is numpy over the full window): the part of a
+        keyframe's processing that need not precede the tracker's block rebuild.
+
+        Under the "block" write-back policies it first lands the triangulation
+        and the BA an earlier keyframe's heavy stage launched: at depth 2 a
+        chunk's second keyframe passes its critical part before the first one's
+        stage has run, so this is where its BA would otherwise start from poses
+        the first BA has not refined (the reference lands both at the next
+        fetch). At depth 1, for a chunk's first keyframe and for monocular no
+        triangulation or BA is in flight here (the fusion its critical part
+        launched stays in flight, as at depth 1)."""
+        mapping = self.cfg.mapping
+        with self.timers.time("mapper/land_earlier"):
+            if mapping.triangulate_new_points and mapping.trifuse_writeback == "block":
+                self.apply_pending_triangulation()
+            if mapping.ba_writeback == "block":
+                self.flush_ba()
         if self.cfg.mapping.triangulate_new_points:
             with self.timers.time("mapper/triangulate"):
                 pending = self._dispatch_triangulation(kf)

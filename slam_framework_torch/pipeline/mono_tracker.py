@@ -15,6 +15,10 @@ depth point, and the local mapper runs synchronously and supplies the new
 landmarks by triangulation. The map's scale is fixed by normalizing the initial
 map's median depth to 1 (tracker.cpp:417-438) and is observable only up to the
 gauge: trajectories are evaluated Sim3-aligned (io/trajectory.py).
+It inherits the stereo tracker's pipeline depth (2 once the map has 12
+keyframes) and shortens its chunks while the map is young (`_current_sync`);
+its mapper stays synchronous, so at depth 2 only the write-backs of a chunk
+without a keyframe wait for the next dispatch.
 
 The initializer's (200, 8) RANSAC sets are drawn on the host from a
 `torch.Generator` seeded 3, one draw per two-view attempt (`_draw_sets`; the

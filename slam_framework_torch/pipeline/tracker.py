@@ -16,9 +16,8 @@ keyframe decisions `sync_every` frames behind, as the reference does.
 
 Every keyframe goes through the local mapper (pipeline/local_mapper.py: point
 culling, multi-view triangulation, neighbour fusion, keyframe culling, local
-BA) before the block is rebuilt, and `flush()` finalizes it. Just before
-that, `on_new_keyframe` (set by SlamSystem) hands the keyframe to place
-recognition and loop closing.
+BA), and `flush()` finalizes it. Just before that, `on_new_keyframe` (set by
+SlamSystem) hands the keyframe to place recognition and loop closing.
 
 A lost frame goes to the relocalizer (pipeline/relocalization.py, set by
 SlamSystem once place recognition exists): the front-end runs on the device,
@@ -29,20 +28,32 @@ stricter inlier bar for `max_frames_between_kfs` frames. In localization mode
 the camera and the block is rebuilt around it, which the reference package
 omits (its block refreshes at keyframes only, so it goes stale).
 
-Chunks run serially on the host, in the order of the reference's pipeline
-depth 1: run the chunk; read its results back together with the mapper's
-in-flight results (launched at the previous chunk's keyframes); process the
-chunk, where a keyframe first lands those results (fuse, then triangulation,
-then BA), culls points, launches its own triangulation and BA, culls
-keyframes, and only then rebuilds the block; a chunk without a keyframe lands
-them after its frames. What is kept of the reference's depth 2 is the chunk
-boundary at which every write-back is applied (its order fetch ->
-process-critical -> dispatch -> deferred lands them at the same boundary)
-and the remap before the next chunk. What is not kept is its overlap of the
-heavy mapper stage with the next chunk's device work: there the keyframe
-culling runs after the block rebuild instead of before it. The mapper's
-programs are launched without waiting for the device, so the host still goes
-on while the card works on them.
+Chunks are dispatched and fetched in the reference's pipeline order
+(`pipeline_depth`, 2 by default, as in the reference). `_dispatch` launches
+the chunk's front-end and tracking core frame by frame and queues its device
+tensors in `_pending`; `_fetch` reads the oldest one back, together with the
+mapper's in-flight results (launched at the previous chunk's keyframes), and
+`_process` makes the host bookkeeping. At depth 1 a chunk is fetched and
+processed right after its dispatch. At depth 2, once the map has
+`MATURE_MAP_KFS` keyframes, a chunk stays in flight while the next one
+buffers, and at each full buffer the order is fetch -> process-critical ->
+dispatch -> deferred: the critical part lands the mapper's results at a
+keyframe (fuse, then triangulation, then BA), culls points, inserts the
+keyframe and rebuilds the block, whose remap precedes the next dispatch; the
+heavy mapper stage (triangulation and local-BA launches, keyframe culling)
+and the write-backs of a chunk without a keyframe are queued in `_deferred`
+and run after the next chunk is launched, so the host works on them while the
+card finishes that chunk (where a chunk made two keyframes, the second one's
+stage first lands the first one's BA: pipeline/local_mapper.py). On a loss every pending and buffered frame is
+recorded lost and dropped: at depth 2 that is the chunk buffered behind the
+lost one. The monocular mapper stays synchronous at either depth.
+
+Not carried: the reference's `lax.cond` around the fallback ladder is a host
+branch here, one read of the motion path's inliers per frame inside
+`_track_core`, so a dispatch waits for each frame's motion tracking; and the
+reference's packing of a fetch into one buffer (`_pack_payload`, the zero
+placeholders `_ph`, `aux_fetch`), which served a remote device behind a
+per-call latency.
 """
 
 from __future__ import annotations
@@ -106,10 +117,14 @@ class FrameRecord:
 
 class StereoTracker:
     MAX_KFS_PER_CHUNK = 1  # keyframe budget per chunk, scaled with sync_every
+    MATURE_MAP_KFS = 12    # depth 2 waits for this many keyframes
     frontend_images = 2    # images per staged frame: (left, right) or (gray, depth)
 
     def __init__(self, cfg: SlamConfig, arena: Optional[MapArena] = None, sync_every: int = 4,
-                 device: Optional[torch.device] = None):
+                 pipeline_depth: int = 2, device: Optional[torch.device] = None):
+        """pipeline_depth: chunks in flight before one is fetched; 2 keeps a
+        chunk on the device while the next one buffers (see the module
+        docstring), 1 fetches each chunk right after its dispatch."""
         self.cfg = cfg
         # None: the first CUDA device, or an error when there is none
         self.device = resolve_device(device)
@@ -118,6 +133,7 @@ class StereoTracker:
         self.arena = arena or MapArena.create(cfg.capacity, cfg.capacity.max_features)
         self.state = TrackingState.NO_IMAGES_YET
         self.sync_every = max(1, sync_every)
+        self.pipeline_depth = max(1, pipeline_depth)
         # the keyframe cadence is set in frames, not chunks (tracker.cpp:1224-1306)
         self.max_kfs_per_chunk = max(self.MAX_KFS_PER_CHUNK, round(self.sync_every / 4))
         self.ref_kf = -1
@@ -137,7 +153,9 @@ class StereoTracker:
         self._block_ids: Optional[np.ndarray] = None   # (P,) int32 — point id per block slot
         self._block_pos_host: Optional[np.ndarray] = None
         self._buf = []                 # buffered (frame, frame_id, timestamp) awaiting a chunk
+        self._pending = []             # dispatched chunks awaiting a fetch (see _dispatch)
         self._pending_remap = None     # pre-rebuild block ids awaiting the device-state remap
+        self._deferred = []            # [(kind, fn)] host work run after the next dispatch
 
     def _make_frontend(self):
         if self.cfg.sensor == "rgbd":
@@ -147,6 +165,14 @@ class StereoTracker:
     def _current_sync(self) -> int:
         """Frames per chunk; the monocular tracker shortens it while the map is young."""
         return self.sync_every
+
+    def _current_depth(self) -> int:
+        """Pipeline depth: 1 while the map is young (a bootstrap-age map loses
+        tracking under depth 2), `pipeline_depth` once it has MATURE_MAP_KFS
+        keyframes."""
+        if self.arena.n_valid_kfs < self.MATURE_MAP_KFS:
+            return 1
+        return self.pipeline_depth
 
     # ------------------------------------------------------------------ device program
 
@@ -233,49 +259,71 @@ class StereoTracker:
         found.index_add_(0, found_idx, torch.ones_like(slot))
         return new_state, summary, pack, fd.desc, vis, found[:P]
 
-    def _run_chunk(self) -> None:
-        """Front-end + tracking core for every buffered frame against one block,
-        then the host bookkeeping of the chunk."""
+    def _dispatch(self) -> None:
+        """Launch the front-end and the tracking core for every buffered frame
+        against one block, and queue the chunk's device tensors in `_pending`.
+        Nothing here waits for the chunk's results, except the per-frame read
+        inside `_track_core`."""
         if self._pending_remap is not None:
             with self.timers.time("dispatch/remap"):
                 self._remap_device_state(self._pending_remap)
             self._pending_remap = None
         batch, self._buf = self._buf, []
-        block, block_ids = self._block, self._block_ids
+        block = self._block
         P = block.pos.shape[0]
         vis = torch.zeros(P, dtype=torch.int32, device=self.device)
         found = torch.zeros_like(vis)
         summaries, packs, descs = [], [], []
         state = self._dstate
-        with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
-            for frame, _fid, _ts in batch:
-                with trace_span("tracker/frontend"):
-                    fd = self.frontend(*frame)
-                with trace_span("tracker/track_core"):
-                    state, summary, pack, desc, v, f = self._track_core(state, fd, block)
-                summaries.append(summary)
-                packs.append(pack)
-                descs.append(desc)
-                vis += v
-                found += f
+        for frame, _fid, _ts in batch:
+            with trace_span("tracker/frontend"):
+                fd = self.frontend(*frame)
+            with trace_span("tracker/track_core"):
+                state, summary, pack, desc, v, f = self._track_core(state, fd, block)
+            summaries.append(summary)
+            packs.append(pack)
+            descs.append(desc)
+            vis += v
+            found += f
         self._dstate = state
+        self._pending.append((
+            [b[1] for b in batch], [b[2] for b in batch],
+            torch.stack(summaries), torch.stack(packs), torch.stack(descs), vis, found, self._block_ids,
+        ))
+
+    def _fetch(self):
+        """Read the oldest pending chunk back to the host, together with the
+        mapper's in-flight results (launched at the previous chunk's keyframes;
+        None where nothing is in flight), in the form `_process` takes."""
+        if self._deferred:
+            # a path change after a pipelined chunk (depth 2 -> 1, or flush):
+            # the mapper launches queued there must exist before their results
+            # are read
+            self._run_deferred()
+        fids, tss, summaries, packs, descs, vis, found, block_ids = self._pending.pop(0)
+        mapper = self.local_mapper
+        ba_data, tri_data, fuse_data = (
+            None if h is None else [t.cpu().numpy() for t in h]
+            for h in (mapper.ba_handles(), mapper.tri_handles(), mapper.fuse_handles())
+        )
+        return (
+            fids, tss, summaries.cpu().numpy(), vis.cpu().numpy(), found.cpu().numpy(), packs.cpu().numpy(),
+            descs.cpu().numpy().view(np.uint32), block_ids, ba_data, tri_data, fuse_data, packs, descs,
+        )
+
+    def _drain(self) -> None:
+        """Fetch and process the oldest pending chunk (the serial path)."""
         with self.timers.time("drain"), trace_span("tracker/fetch"):
-            # the mapper's results launched at the previous chunk's keyframes
-            # come back with the chunk's own (None where nothing is in flight)
-            mapper = self.local_mapper
-            ba_data, tri_data, fuse_data = (
-                None if h is None else [t.cpu().numpy() for t in h]
-                for h in (mapper.ba_handles(), mapper.tri_handles(), mapper.fuse_handles())
-            )
-            raw = (
-                [b[1] for b in batch], [b[2] for b in batch],
-                torch.stack(summaries).cpu().numpy(), vis.cpu().numpy(), found.cpu().numpy(),
-                torch.stack(packs).cpu().numpy(),
-                torch.stack(descs).cpu().numpy().view(np.uint32), block_ids,
-                ba_data, tri_data, fuse_data, packs, descs,
-            )
+            raw = self._fetch()
         with self.timers.time("process"), trace_span("tracker/process"):
             self._process(raw)
+
+    def _run_deferred(self) -> None:
+        """Run the queued host work of `_process(defer=True)`: the heavy stage
+        of each keyframe in order, or the write-backs of a chunk without one."""
+        q, self._deferred = self._deferred, []
+        for _kind, fn in q:
+            fn()
 
     # ------------------------------------------------------------------ main entry
 
@@ -313,26 +361,59 @@ class StereoTracker:
         self._buf.append((frame, self.frame_id, timestamp))
         self.frame_id += 1
         if len(self._buf) >= self._current_sync():
-            self._run_chunk()
+            if self._current_depth() > 1 and not self._pending:
+                # prime the pipeline: this chunk runs while the next one buffers
+                with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
+                    self._dispatch()
+            elif self._current_depth() > 1:
+                # fetch -> process-critical -> dispatch -> deferred: the
+                # keyframe's insertion, block rebuild and remap precede the next
+                # chunk; the heavy mapper stage runs while that chunk computes
+                with self.timers.time("drain"), trace_span("tracker/fetch"):
+                    raw = self._fetch()
+                with self.timers.time("process"), trace_span("tracker/process"):
+                    self._process(raw, defer=True)
+                if self._buf:  # a loss drops the buffered chunk
+                    with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
+                        self._dispatch()
+                with self.timers.time("process/deferred"), trace_span("tracker/deferred"):
+                    self._run_deferred()
+            else:
+                with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
+                    self._dispatch()
+                while self._pending:
+                    self._drain()
         return self.records[-1].pose if self.records else None
 
     def flush(self) -> None:
-        """Process all buffered frames. Tail frames run one chunk each, as the
-        reference dispatches them through its fixed (1, ...) chunk shape."""
+        """Process all buffered and pending frames. Tail frames run one chunk
+        each, as the reference dispatches them through its fixed (1, ...) chunk
+        shape; each is dispatched before the chunks still pending are drained."""
         rest, self._buf = self._buf, []
         for item in rest:
             if self.state == TrackingState.LOST:
                 self.records.append(FrameRecord(item[1], item[2], None, True, self.ref_kf))
                 continue
             self._buf = [item]
-            self._run_chunk()
+            with self.timers.time("dispatch"), trace_span("tracker/dispatch"):
+                self._dispatch()
+            while self._pending:
+                self._drain()
+        while self._pending:
+            self._drain()
         self.local_mapper.finalize()
 
     # ------------------------------------------------------------------ host sync
 
-    def _process(self, raw) -> None:
+    def _process(self, raw, defer: bool = False) -> None:
         """Host bookkeeping for one chunk: records, lost detection, keyframe
-        decision/creation, visible/found accrual, mapper result landing."""
+        decision/creation, visible/found accrual, mapper result landing.
+
+        defer=True (depth 2) queues the heavy stage of each keyframe and the
+        write-backs of a chunk without one in `_deferred`; the caller runs them
+        after dispatching the next chunk. What that chunk depends on (the
+        write-backs at a keyframe, its insertion, the block rebuild and the
+        remap) happens here."""
         (fids, tss, summaries, vis, found, packs, descs, block_ids,
          ba_data, tri_data, fuse_data, packs_dev, descs_dev) = raw
         # per-frame visible/found accrual against the block the chunk ran with
@@ -375,25 +456,38 @@ class StereoTracker:
                         and self._need_new_keyframe(fid, s)):
                     self._create_keyframe(
                         fid, ts, pose, packs[j], descs[j], block_ids, packs_dev[j], descs_dev[j],
-                        ba_data=ba_data, tri_data=tri_data, fuse_data=fuse_data,
+                        ba_data=ba_data, tri_data=tri_data, fuse_data=fuse_data, defer=defer,
                     )
                     ba_data = tri_data = fuse_data = None  # consumed
                     rec.ref_kf = self.ref_kf
                     made_kf += 1
                 rec.rel_pose = self._rel_to_ref(pose, rec.ref_kf)
             self.records.append(rec)
-        # no keyframe this chunk: still land the fetched fuse / triangulation /
-        # local-BA results (a settled result never sits stale across chunks)
-        if fuse_data is not None:
-            self.local_mapper.apply_pending_fuse(prefetched=fuse_data)
-        if tri_data is not None:
-            self.local_mapper.apply_pending_triangulation(prefetched=tri_data)
-        if ba_data is not None:
-            self.local_mapper.flush_ba(prefetched=ba_data)
+        if fuse_data is not None or tri_data is not None or ba_data is not None:
+            # no keyframe this chunk: still land the fetched fuse / triangulation /
+            # local-BA results (a settled result never sits stale across chunks).
+            # Nothing rebuilds the block before the next keyframe, so at depth 2
+            # they land after the next dispatch.
+            def land(fuse_data=fuse_data, tri_data=tri_data, ba_data=ba_data) -> None:
+                if fuse_data is not None:
+                    self.local_mapper.apply_pending_fuse(prefetched=fuse_data)
+                if tri_data is not None:
+                    self.local_mapper.apply_pending_triangulation(prefetched=tri_data)
+                if ba_data is not None:
+                    self.local_mapper.flush_ba(prefetched=ba_data)
+
+            if defer:
+                self._deferred.append(("writeback", land))
+            else:
+                land()
         if self.localization_only and self.state == TrackingState.OK and last_tracked is not None:
             self._follow_reference_keyframe(packs[last_tracked], block_ids)
         if self.state == TrackingState.LOST:
-            # drop buffered work — it descends from the lost state
+            # drop pending and buffered work: it descends from the lost state
+            for fids2, tss2, *_ in self._pending:
+                for fid2, ts2 in zip(fids2, tss2):
+                    self.records.append(FrameRecord(fid2, ts2, None, True, self.ref_kf))
+            self._pending = []
             for (_frame, fid2, ts2) in self._buf:
                 self.records.append(FrameRecord(fid2, ts2, None, True, self.ref_kf))
             self._buf = []
@@ -579,12 +673,13 @@ class StereoTracker:
         return int((arena.pt_valid[pids] & (arena.pt_obs_count[pids] >= min_obs)).sum())
 
     def _create_keyframe(self, fid, ts, pose, pack, desc, block_ids, pack_dev, desc_dev,
-                         ba_data=None, tri_data=None, fuse_data=None) -> int:
+                         ba_data=None, tri_data=None, fuse_data=None, defer=False) -> int:
         """CreateNewKeyFrame (tracker.cpp:1311-1379) for a synced frame, from the
         host copy of its feature pack. `block_ids` is the block layout the
         frame's chunk ran with (pack slots index it). pack_dev / desc_dev are the
         frame's feature block on the device, for the keyframe store; *_data are
-        the mapper's in-flight results as the drain read them back."""
+        the mapper's in-flight results as the fetch read them back. defer=True
+        queues the mapper's heavy stage in `_deferred`."""
         arena = self.arena
         cfg = self.cfg
         xy = pack[:, 0:2]
@@ -633,7 +728,8 @@ class StereoTracker:
                 ba_data = tri_data = fuse_data = None
         with self.timers.time("keyframe"), trace_span("tracker/keyframe"):
             self.local_mapper.process_keyframe(
-                kf, prefetched_ba=ba_data, prefetched_tri=tri_data, prefetched_fuse=fuse_data)
+                kf, prefetched_ba=ba_data, prefetched_tri=tri_data, prefetched_fuse=fuse_data,
+                defer_queue=self._deferred if defer else None)
         self.metrics.add(
             event="keyframe", frame_id=fid, kf=kf, tracked_points=self.ref_kf_tracked,
             ba=dict(self.local_mapper.last_ba_stats),

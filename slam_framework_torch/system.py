@@ -16,6 +16,15 @@ rank mesh (`mesh=`, parallel/mesh.py) of more than one rank, the post-loop
 global BA runs sharded over it and point ownership migrates after each merge
 (pipeline/loop_closer.py); the mesh lives on the system's device.
 
+The tracker runs at the reference's pipeline depth 2 once the map has 12
+keyframes (pipeline/tracker.py): a chunk stays in flight while the next one
+buffers, and the mapper's heavy stage runs after the next chunk is launched.
+As in the reference the system takes no depth argument; a caller sets
+`system.tracker.pipeline_depth` (1: the serial order). Everything that drains
+the tracker goes through `tracker.flush()` (`_settle`: shutdown, exports,
+`save_map`), which processes the pending chunks too; a reset or `load_map`
+builds a new tracker.
+
 The vocabulary is `cfg.vocabulary_path` or the shipped asset; when no file
 loads, one is trained online from the first keyframes' descriptors, and place
 recognition and relocalization start once it exists.

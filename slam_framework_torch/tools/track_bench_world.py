@@ -39,6 +39,12 @@ report (`chip_smoke.py` phase 13 is this run on the card):
 
     python -m slam_framework_torch.tools.track_bench_world --mesh 8
     python -m slam_framework_torch.tools.track_bench_world --mesh 8 --device cpu
+
+`--depth D` sets the tracker's pipeline depth (default 2, the tracker's own:
+depth 2 from 12 keyframes on; 1 is the serial order), as
+`tools/ref_track_bench_world.py --depth` does for the reference:
+
+    python -m slam_framework_torch.tools.track_bench_world --blackout 110-112 --depth 1 --device cpu
 """
 
 from __future__ import annotations
@@ -171,6 +177,7 @@ def main() -> None:
     ap.add_argument("--blackout", default="", help="A-B: frames A..B (inclusive) become a blank gray pair")
     ap.add_argument("--sensor", default="stereo", choices=("stereo", "rgbd", "monocular"))
     ap.add_argument("--mesh", type=int, default=0, help="N: the post-loop global BA over LocalMesh(N) on the device")
+    ap.add_argument("--depth", type=int, default=2, help="the tracker's pipeline depth (1: serial)")
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -187,6 +194,7 @@ def main() -> None:
         mesh = LocalMesh(args.mesh, resolve_device(args.device))
     system = SlamSystem(cfg, sensor=args.sensor, sync_every=args.sync, device=args.device,
                         place_recognition=not args.no_loop_closer, mesh=mesh)
+    system.tracker.pipeline_depth = args.depth
     blackout = parse_blackout(args.blackout)
     if blackout and args.sensor != "stereo":
         ap.error("--blackout takes the stereo sensor")
@@ -202,6 +210,7 @@ def main() -> None:
     records = system.tracker.records
     print(json.dumps({
         "device": str(system.device), "mesh": repr(mesh) if mesh else None, "world": args.world, "sensor": args.sensor, "frames": args.frames, "sync_every": args.sync,
+        "pipeline_depth": args.depth,
         "wall_s_with_rendering": wall, "frames_per_s_with_rendering": args.frames / wall,
         "ate_m": (trajectory.ate_rmse(est, world.poses[: args.frames], align="se3")
                   if args.sensor != "monocular" and len(est) == args.frames else None),

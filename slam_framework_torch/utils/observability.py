@@ -1,15 +1,18 @@
 """Structured metrics, stage timers and profiler spans.
 
 Copy of slam_framework_tpu/utils/observability.py; `trace_span` names a range in
-the torch.profiler timeline instead of the JAX profiler's.
+the torch.profiler timeline instead of the JAX profiler's, and `start_trace` /
+`stop_trace` capture that timeline (the host's spans and, on a CUDA device,
+its kernels) into a Chrome trace file in place of an xprof one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -100,3 +103,38 @@ def trace_span(name: str) -> Iterator[None]:
     """Named range in the torch.profiler timeline (free when no profiler runs)."""
     with torch.profiler.record_function(name):
         yield
+
+
+TRACE_FILE = "trace.json"
+_trace: Optional[tuple] = None  # (torch.profiler.profile, log_dir) while a capture runs
+
+
+def start_trace(log_dir: Optional[str]) -> bool:
+    """Begin a torch.profiler capture of the host's spans and, when CUDA is
+    available, the device's kernels; `stop_trace` ends it and writes it to
+    `log_dir` (None: nothing is written). False when a capture already runs."""
+    global _trace
+    if _trace is not None:
+        return False
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _trace = (prof, log_dir)
+    return True
+
+
+def stop_trace():
+    """End the capture of `start_trace`, write it as `log_dir/trace.json`
+    (Chrome trace format, readable by Perfetto and chrome://tracing) and return
+    the profiler, whose `events()` hold the capture; None when none runs."""
+    global _trace
+    if _trace is None:
+        return None
+    (prof, log_dir), _trace = _trace, None
+    prof.stop()
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    return prof

@@ -244,7 +244,7 @@ def test_block_from_store_and_kf_store_match_reference():
     jstore.set_from_device(1, jnp.asarray(pack), jnp.asarray(desc))
     # a store copied from the reference's, and one filled by the port's own methods
     copied = interop.kf_store(jstore, "cpu")
-    own = TMapper(_cfg(tconf), interop.arena(jarena), TK).kf_store
+    own = TMapper(_cfg(tconf), interop.arena(jarena), TK, device="cpu").kf_store
     own.ensure([0, 2], interop.arena(jarena))
     own.set_from_device(1, torch.from_numpy(pack), interop.to_tensor(desc))
     for store in (copied, own):
@@ -295,7 +295,7 @@ def _arena(txs, shared, owner=0, all_kfs=False, seed=0):
 
 def _mappers(jarena, **mapping):
     """A reference mapper on `jarena` and a port mapper on a copy of it."""
-    return JMapper(_cfg(jconf, **mapping), jarena, JK), TMapper(_cfg(tconf, **mapping), interop.arena(jarena), TK)
+    return JMapper(_cfg(jconf, **mapping), jarena, JK), TMapper(_cfg(tconf, **mapping), interop.arena(jarena), TK, device="cpu")
 
 
 def _assert_arenas_equal(ta, ja, atol=0.0):
