@@ -23,9 +23,12 @@ departure: a heavy stage first lands the triangulation and the BA an earlier
 keyframe's stage launched (the "block" write-back policy). The reference lets
 a chunk's second keyframe assemble its BA on poses its first keyframe's BA has
 not yet refined and lands both BAs at the next fetch, the later one
-overwriting the earlier's cameras; on the bench world that weakened the map
-enough to lose the blackout run again after its relocalization on an H100
-(PERF.md). Serially, and in a chunk with one keyframe, nothing changes.
+overwriting the earlier's cameras. Without the landing the bench world's
+blackout run on an H100 was lost again after its relocalization, while the
+same code on the CPU relocalized and kept tracking; why the two devices part
+there is an open question (PERF.md §7). The landing acts only where a chunk
+makes two keyframes (`sync_every` 8 makes that possible); serially, and in a
+chunk with one keyframe, nothing changes.
 
 Monocular keyframes get no points but by triangulation, so for them the stage
 is synchronous, as in the reference: every pending result is written back when

@@ -296,9 +296,11 @@ class StereoTracker:
         mapper's in-flight results (launched at the previous chunk's keyframes;
         None where nothing is in flight), in the form `_process` takes."""
         if self._deferred:
-            # a path change after a pipelined chunk (depth 2 -> 1, or flush):
-            # the mapper launches queued there must exist before their results
-            # are read
+            # the reference's safety net: the mapper launches queued by
+            # `_process(defer=True)` must exist before their results are read.
+            # `track_device` runs the queue right after the next dispatch, and
+            # depth 1 and `flush` queue nothing, so this acts only for a caller
+            # that fetches between the two
             self._run_deferred()
         fids, tss, summaries, packs, descs, vis, found, block_ids = self._pending.pop(0)
         mapper = self.local_mapper

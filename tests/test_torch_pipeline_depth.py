@@ -19,12 +19,14 @@ tracked before the loss. Keyframe culling runs after the block rebuild at depth
 2 (before it at depth 1). The three runs (the reference's and the port's at
 depth 2 and 1) take a thread each.
 
-The port at `pipeline_depth=1` on the same frames runs the serial order the
-port ran before depth 2 existed (its records on these frames were bit-equal to
-that version's when this test was written): each chunk is fetched right after
-its dispatch, nothing is deferred, and the frames 17-20 each make an attempt.
-No keyframe is culled on these frames, so the depth moves host work only: its
-records up to the loss are bit-equal to the depth-2 run's.
+The port at `pipeline_depth=1` on the same frames runs the serial order: each
+chunk is fetched right after its dispatch, nothing is deferred, and the frames
+17-20 each make an attempt. No keyframe is culled on these frames, so the
+depth moves host work only: its records up to the loss are bit-equal to the
+depth-2 run's. The serial path is held against the reference by the parity
+tests whose maps stay under `MATURE_MAP_KFS` keyframes, so that the port's
+tracker never leaves depth 1 there: tests/test_torch_slice.py and
+tests/test_torch_rgbd.py (at most 6 keyframes).
 """
 
 import inspect
