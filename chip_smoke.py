@@ -109,7 +109,8 @@ Phases (any failure exits non-zero before the final line):
   10. monocular run: the left images through a monocular SlamSystem's
      `track_monocular` (tools/bench_mono.py's world). Prints the init frame and
      the map's median depth after it. Held like phase 9, with frames without a
-     tracked pose in place of lost frames and the Sim3-aligned ATE;
+     tracked pose in place of lost frames and the Sim3-aligned ATE; fails unless
+     it initializes at frame 1 against frame 0, as the reference does;
   11. figure-eight run: the two-loop world of the reference's TestMultiLoop
      (`make_figure_eight_world`, seed 4, `lap_frames=200`: 450 frames, a lap
      around circle A, one around the tangent circle B, back onto A) at that
@@ -251,7 +252,7 @@ RESUME_CENTRE_TOL_M = 0.3
 # 0.4452 m (Sim3). Bounds: lost (untracked) <= the reference's + SYNC, loops
 # >= the reference's, ATE <= twice the reference's.
 REF_RGBD = {"lost": 0, "loops": 1, "ate_m": 0.4484}
-REF_MONO = {"untracked": 0, "loops": 1, "ate_m": 0.4452}
+REF_MONO = {"untracked": 0, "loops": 1, "ate_m": 0.4452, "init": (1, 0)}
 MONO_FRAMES = 330
 RENDER_PROCS = 8
 # figure-eight run, at the reference test's configuration and sync. The
@@ -1122,6 +1123,9 @@ def _sensor_run(torch, dev, cfg, world, frames, sensor: str, n_frames: int, fast
         _fail(f"{name} run: {stats['loops_closed']} loops closed, fewer than the reference's {ref['loops']}")
     if not ate <= 2 * ref["ate_m"]:
         _fail(f"{name} run: ATE {ate} m above the bound {2 * ref['ate_m']} m")
+    got_init = None if init is None else (init["frame"], init["ref_frame"])
+    if sensor == "monocular" and got_init != ref["init"]:
+        _fail(f"monocular run: initialized at (frame, against frame) {got_init}, not {ref['init']} as the reference")
     _check_launches(f"{name} run", launches, fed, n_frames, untracked)
     if not _state_on_card(system):
         _fail(f"{name} run: a tracker state tensor is off the CUDA device")

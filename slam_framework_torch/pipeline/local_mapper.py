@@ -25,10 +25,13 @@ a chunk's second keyframe assemble its BA on poses its first keyframe's BA has
 not yet refined and lands both BAs at the next fetch, the later one
 overwriting the earlier's cameras. Without the landing the bench world's
 blackout run on an H100 was lost again after its relocalization, while the
-same code on the CPU relocalized and kept tracking; why the two devices part
-there is an open question (PERF.md §7). The landing acts only where a chunk
-makes two keyframes (`sync_every` 8 makes that possible); serially, and in a
-chunk with one keyframe, nothing changes.
+same code on the CPU kept tracking. The two devices compute every stage alike
+from the same inputs, up to rounding (tools/replay_blackout.py); the rounding
+compounds into maps that differ slightly, and the card's relocalization then
+meets the motion-only BA's collapse on a BoW set of about half outliers, which
+the reference shares, and tracks on too weak a pose. The landing acts only
+where a chunk makes two keyframes (`sync_every` 8 makes that possible);
+serially, and in a chunk with one keyframe, nothing changes.
 
 Monocular keyframes get no points but by triangulation, so for them the stage
 is synchronous, as in the reference: every pending result is written back when

@@ -295,13 +295,10 @@ class StereoTracker:
         """Read the oldest pending chunk back to the host, together with the
         mapper's in-flight results (launched at the previous chunk's keyframes;
         None where nothing is in flight), in the form `_process` takes."""
-        if self._deferred:
-            # the reference's safety net: the mapper launches queued by
-            # `_process(defer=True)` must exist before their results are read.
-            # `track_device` runs the queue right after the next dispatch, and
-            # depth 1 and `flush` queue nothing, so this acts only for a caller
-            # that fetches between the two
-            self._run_deferred()
+        # the mapper launches queued by `_process(defer=True)` must exist before
+        # their results are read: `track_device` runs the queue right after the
+        # next dispatch, and depth 1 and `flush` queue nothing
+        assert not self._deferred, "fetch with deferred host work still queued"
         fids, tss, summaries, packs, descs, vis, found, block_ids = self._pending.pop(0)
         mapper = self.local_mapper
         ba_data, tri_data, fuse_data = (

@@ -27,6 +27,19 @@ depth-2 run's. The serial path is held against the reference by the parity
 tests whose maps stay under `MATURE_MAP_KFS` keyframes, so that the port's
 tracker never leaves depth 1 there: tests/test_torch_slice.py and
 tests/test_torch_rgbd.py (at most 6 keyframes).
+
+At sync_every=8 a chunk may make two keyframes. Both trackers then also run
+17 loss-free frames of the same world at sync_every=8 with `MATURE_MAP_KFS`
+set to 1, so depth 2 starts at the first chunk (1-8), which is processed with
+its two keyframes deferred while chunk 9-16 computes. The schedule then also
+logs the mapper's write-backs (`flush_ba` and `apply_pending_triangulation`,
+each call with the number of results it lands) and each keyframe's heavy
+stage (at its triangulation launch). In the reference both heavy stages of
+a two-keyframe chunk run back to back and both BAs land at the next fetch;
+the port's second heavy stage first lands the triangulation and the BA the
+first one launched (pipeline/local_mapper.py), and that landing is the one
+difference the schedules may show. Keyframes, points and poses are held with
+the tolerances above.
 """
 
 import inspect
@@ -69,6 +82,28 @@ DROPPED = range(17, 21)   # the chunk buffered behind the lost one
 MATURE = 2
 EVENTS = (("_dispatch", "dispatch"), ("_fetch", "fetch"), ("_run_deferred", "deferred"),
           ("_rebuild_block", "rebuild"), ("_track_lost", "attempt"))
+N8, MATURE8 = 17, 1   # the sync_every=8 runs
+
+
+def _instrument_mapper(mapper, log):
+    """Log the mapper's write-backs with the results each lands, and each
+    keyframe's heavy stage at its triangulation launch."""
+    for name, event, pending in (("flush_ba", "flush_ba", "_ba_pendings"),
+                                 ("apply_pending_triangulation", "apply_tri", "_tri_pending")):
+        inner = getattr(mapper, name)
+
+        def logged(*a, inner=inner, event=event, pending=pending, **k):
+            log.append((event, len(getattr(mapper, pending))))
+            return inner(*a, **k)
+
+        setattr(mapper, name, logged)
+    launch = mapper._dispatch_triangulation
+
+    def heavy(kf):
+        log.append(("heavy", int(kf)))
+        return launch(kf)
+
+    mapper._dispatch_triangulation = heavy
 
 
 def _instrument(tracker, log):
@@ -87,11 +122,13 @@ def _instrument(tracker, log):
     wrap(tracker.local_mapper, "_cull_keyframes", "cull_kfs")
 
 
-def _run(tracker, feed, world):
-    tracker.MATURE_MAP_KFS = MATURE
+def _run(tracker, feed, world, n=N, mature=MATURE, mapper_log=False):
+    tracker.MATURE_MAP_KFS = mature
     log = []
     _instrument(tracker, log)
-    for f in range(N):
+    if mapper_log:
+        _instrument_mapper(tracker.local_mapper, log)
+    for f in range(n):
         tracker.track(*feed[f], world.timestamps[f])
     tracker.flush()
     return {"tracker": tracker, "log": log}
@@ -106,16 +143,20 @@ def runs():
     pairs = [world.stereo_pair(f) for f in range(N)]
     gray = np.full_like(pairs[0][0], 90)
     feed = [(gray, gray) if f in GRAY else pairs[f] for f in range(N)]
+    sync8 = dict(n=N8, mature=MATURE8, mapper_log=True)
     makers = {
-        "ref": lambda: JTracker(jcfg, sync_every=4),
-        "port2": lambda: StereoTracker(tcfg, sync_every=4, device="cpu"),
-        "port1": lambda: StereoTracker(tcfg, sync_every=4, pipeline_depth=1, device="cpu"),
+        "ref": (lambda: JTracker(jcfg, sync_every=4), feed, {}),
+        "port2": (lambda: StereoTracker(tcfg, sync_every=4, device="cpu"), feed, {}),
+        "port1": (lambda: StereoTracker(tcfg, sync_every=4, pipeline_depth=1, device="cpu"), feed, {}),
+        "ref8": (lambda: JTracker(jcfg, sync_every=8), pairs, sync8),
+        "port8": (lambda: StereoTracker(tcfg, sync_every=8, device="cpu"), pairs, sync8),
     }
     out, errors = {}, []
 
     def run(name):
+        make, frames, kw = makers[name]
         try:
-            out[name] = _run(makers[name](), feed, world)
+            out[name] = _run(make(), frames, world, **kw)
         except BaseException as e:  # re-raised below
             errors.append(e)
 
@@ -200,6 +241,87 @@ def test_depth_1_runs_the_serial_order(runs):
     for ra, rb in zip(a.records[: GRAY[0]], b.records[: GRAY[0]]):
         assert (ra.frame_id, ra.lost, ra.ref_kf) == (rb.frame_id, rb.lost, rb.ref_kf)
         np.testing.assert_array_equal(ra.pose, rb.pose)
+
+
+def _deferred_stages(log):
+    """The events of each deferred stage: from a `deferred` to the next fetch or dispatch."""
+    stages, cur = [], None
+    for e in log:
+        if e == "deferred":
+            cur = []
+            stages.append(cur)
+        elif e in ("fetch", "dispatch"):
+            cur = None
+        elif cur is not None:
+            cur.append(e)
+    return stages
+
+
+def _strip_landings(log):
+    """The log without the landing (the two write-backs the port's heavy stage
+    makes before its triangulation launch), and what each landing landed."""
+    out, landed = [], []
+    for e in log:
+        if isinstance(e, tuple) and e[0] == "heavy":
+            assert [x[0] for x in out[-2:]] == ["apply_tri", "flush_ba"], out[-2:]
+            landed.append((e[1], out[-2][1], out[-1][1]))
+            del out[-2:]
+        out.append(e)
+    return out, landed
+
+
+def _counts_dropped(log):
+    return [e[0] if isinstance(e, tuple) and e[0] in ("flush_ba", "apply_tri") else e for e in log]
+
+
+def _landed(log, event):
+    return sum(e[1] for e in log if isinstance(e, tuple) and e[0] == event)
+
+
+def test_sync_8_schedule_is_the_references_plus_the_landing(runs):
+    """A chunk with two keyframes at depth 2: in the reference both heavy stages
+    run back to back after the next dispatch, with no write-back between them,
+    and both BAs land at the next fetch. The port's one departure: its second
+    heavy stage first lands the triangulation and the BA the first one launched
+    (pipeline/local_mapper.py). Without that landing the schedules are the same
+    call for call, and every result lands exactly once in both."""
+    port, ref = runs["port8"]["log"], runs["ref8"]["log"]
+    two = [st for st in _deferred_stages(ref) if sum(isinstance(e, tuple) and e[0] == "heavy" for e in st) >= 2]
+    assert two, ref  # the reference makes a chunk with two keyframes at depth 2
+    for st in two:
+        assert not any(isinstance(e, tuple) and e[0] in ("flush_ba", "apply_tri") for e in st), st
+    assert ("flush_ba", 2) in ref  # the reference lands the two BAs together
+    stripped, landed = _strip_landings(port)
+    seconds = {st_heavy[1][1] for st_heavy in ([e for e in st if isinstance(e, tuple) and e[0] == "heavy"]
+                                               for st in two)}
+    assert [(kf, tri, ba) for kf, tri, ba in landed if tri or ba] == [(kf, 1, 1) for kf in sorted(seconds)], landed
+    assert _counts_dropped(stripped) == _counts_dropped(ref)
+    for event in ("flush_ba", "apply_tri"):
+        assert _landed(port, event) == _landed(ref, event)
+    assert ("flush_ba", 2) not in port
+
+
+def test_sync_8_same_keyframes_points_and_poses(runs):
+    tt, jt = runs["port8"]["tracker"], runs["ref8"]["tracker"]
+    assert len(tt.records) == len(jt.records) == N8
+    np.testing.assert_array_equal(tt.arena.kf_frame_id[: tt.arena.num_kfs], jt.arena.kf_frame_id[: jt.arena.num_kfs])
+    np.testing.assert_array_equal(tt.arena.kf_valid[: tt.arena.num_kfs], jt.arena.kf_valid[: jt.arena.num_kfs])
+    assert [r.frame_id for r in tt.records if r.lost] == [r.frame_id for r in jt.records if r.lost] == []
+    assert abs(tt.arena.n_valid_pts - jt.arena.n_valid_pts) <= 0.02 * jt.arena.n_valid_pts
+    d = np.linalg.norm(_centers(tt.trajectory_poses()) - _centers(jt.trajectory_poses()), axis=1)
+    assert np.median(d) < 0.01, d
+
+
+def test_fetch_refuses_a_queued_deferred_stage():
+    """Every caller runs the deferred queue before the next fetch; a fetch with
+    work still queued would read the mapper's results without that work's launches."""
+    cfg = tconf.SlamConfig(camera=tconf.CameraConfig(**CAM), capacity=tconf.CapacityConfig(**CAP))
+    tracker = StereoTracker(cfg, sync_every=8, device="cpu")
+    ran = []
+    tracker._deferred.append(("mapper", lambda: ran.append(1)))
+    with pytest.raises(AssertionError, match="deferred"):
+        tracker._fetch()
+    assert not ran
 
 
 def _mono_cfg():
