@@ -47,12 +47,16 @@ class OrbExtractor:
             self.max_features, cfg.num_levels, cfg.scale_factor
         )
 
+    def pyramids(self, img: torch.Tensor):
+        """The fp32 pyramid and blurred pyramid of one (H, W) grayscale image, uint8 or fp32."""
+        img = img.to(torch.float32).contiguous()
+        nl, sf = self.cfg.num_levels, self.cfg.scale_factor
+        return pyramid.build_pyramid(img, nl, sf), pyramid.build_blurred_pyramid(img, nl, sf)
+
     def extract(self, img: torch.Tensor) -> Features:
         """Features of one (H, W) grayscale image, uint8 or fp32: its pyramid and
         blurred pyramid, then `extract_from_pyramid` (one FAST+NMS launch)."""
-        img = img.to(torch.float32).contiguous()
-        nl, sf = self.cfg.num_levels, self.cfg.scale_factor
-        return self.extract_from_pyramid(pyramid.build_pyramid(img, nl, sf), pyramid.build_blurred_pyramid(img, nl, sf))
+        return self.extract_from_pyramid(*self.pyramids(img))
 
     def extract_from_pyramid(self, levels: List[torch.Tensor], blurred: List[torch.Tensor],
                              nms_maps: Optional[Sequence[torch.Tensor]] = None) -> Features:

@@ -9,7 +9,8 @@ The median averages the two middle values, as jnp.nanmedian does
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import functools
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,18 @@ from slam_framework_torch.ops.extractor import Features
 SAD_W = 5          # half window -> 11x11 (frame.cpp:495)
 SAD_L = 5          # search slides -> +-5 (frame.cpp:496)
 TH_STEREO = 75     # (TH_HIGH + TH_LOW) / 2 (frame.cpp:466 area)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_tables(scales: Tuple[float, ...], shapes: Tuple[Tuple[int, int], ...], device: torch.device):
+    """Per octave on the device: the scale, the level's first row in the atlas,
+    its height and its width. Made once per pyramid, so that a call copies
+    nothing from the host and can sit in a CUDA graph."""
+    heights = [h for h, _w in shapes]
+    return (torch.tensor(scales, dtype=torch.float32, device=device),
+            torch.tensor(np.cumsum([0] + heights[:-1]).tolist(), dtype=torch.int32, device=device),
+            torch.tensor(heights, dtype=torch.int32, device=device),
+            torch.tensor([w for _h, w in shapes], dtype=torch.int32, device=device))
 
 
 class StereoMatches(NamedTuple):
@@ -40,7 +53,8 @@ def match_stereo(
 ) -> StereoMatches:
     """scale_factors: (L,) fp32 per-octave scale (1.2^l)."""
     dev = left.xy.device
-    sf = torch.as_tensor(np.asarray(scale_factors, np.float32), device=dev)
+    sf, row_off, lvl_h, lvl_w = _level_tables(
+        tuple(np.asarray(scale_factors, np.float32).tolist()), tuple(tuple(lp_.shape) for lp_ in left_pyr), dev)
     oct_ = left.octave.long()
     scale_l = sf[oct_]
 
@@ -64,12 +78,8 @@ def match_stereo(
     # Subpixel SAD on a pyramid ATLAS (all levels stacked vertically)
     W, Lr = SAD_W, SAD_L
     W0 = left_pyr[0].shape[1]
-    row_off_np = np.cumsum([0] + [lp_.shape[0] for lp_ in left_pyr[:-1]])
     atlas_l = torch.cat([F.pad(lp_, (0, W0 - lp_.shape[1])) for lp_ in left_pyr], dim=0)
     atlas_r = torch.cat([F.pad(rp_, (0, W0 - rp_.shape[1])) for rp_ in right_pyr], dim=0)
-    row_off = torch.as_tensor(row_off_np, dtype=torch.int32, device=dev)
-    lvl_h = torch.as_tensor([lp_.shape[0] for lp_ in left_pyr], dtype=torch.int32, device=dev)
-    lvl_w = torch.as_tensor([lp_.shape[1] for lp_ in left_pyr], dtype=torch.int32, device=dev)
 
     inv_s = 1.0 / scale_l
     xl = torch.round(left.xy[:, 0] * inv_s).to(torch.int32)

@@ -4,19 +4,25 @@ Port of slam_framework_tpu/pipeline/frame.py (`FrameData`, `StereoFrontend`,
 `RgbdFrontend`, `MonoFrontend`). Every front-end runs FAST+NMS over all the
 level images it extracts from in ONE kernel launch: 16 for a stereo frame,
 8 for an RGB-D or a monocular one.
+
+Each front-end is two pure stages around that launch (`Frontend`): `levels`
+builds the pyramids, `fast_nms_strength_levels` runs over the first `n_fast`, and
+`features` extracts and measures depth. The tracker replays the two stages as
+CUDA graphs (pipeline/stage_graphs.py) and makes the launch between them, through
+the module attribute, once per frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry import projection
 from slam_framework_torch.geometry.projection import Intrinsics
-from slam_framework_torch.ops import fast_cuda, pyramid, stereo_match
+from slam_framework_torch.ops import fast_cuda, stereo_match
 from slam_framework_torch.ops.extractor import Features, OrbExtractor
 
 
@@ -47,28 +53,48 @@ class FrameData(NamedTuple):
         return self.xy.shape[0]
 
 
-class StereoFrontend:
+class Frontend:
+    """A front-end as two pure stages around its one FAST+NMS launch: the
+    staged images -> `levels` (a flat tuple of fp32 level images, the
+    `n_fast` FAST inputs first) -> `fast_nms_strength_levels(levels[:n_fast])`
+    -> `features(images, levels, maps)`."""
+
+    n_fast: int  # level images that go through FAST+NMS: the first n_fast of `levels`
+
+    def levels(self, *images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def features(self, images: Sequence[torch.Tensor], levels: Sequence[torch.Tensor],
+                 maps: Sequence[torch.Tensor]) -> FrameData:
+        raise NotImplementedError
+
+    def __call__(self, *images: torch.Tensor) -> FrameData:
+        levels = self.levels(*images)
+        return self.features(images, levels, fast_cuda.fast_nms_strength_levels(levels[: self.n_fast]))
+
+
+class StereoFrontend(Frontend):
     """left + right grayscale -> FrameData, on the images' device."""
 
     def __init__(self, cfg: SlamConfig):
         self.cfg = cfg
         self.K = Intrinsics(cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy, cfg.camera.bf)
         self.extractor = OrbExtractor(cfg.orb, max_features=cfg.capacity.max_features)
-
-    def __call__(self, left: torch.Tensor, right: torch.Tensor) -> FrameData:
-        cfg = self.cfg
-        nl, sf = cfg.orb.num_levels, cfg.orb.scale_factor
-        # one pyramid per image, shared between extraction and stereo matching
-        lf32 = left.to(torch.float32).contiguous()
-        rf32 = right.to(torch.float32).contiguous()
-        lp = pyramid.build_pyramid(lf32, nl, sf)
-        rp = pyramid.build_pyramid(rf32, nl, sf)
-        lb = pyramid.build_blurred_pyramid(lf32, nl, sf)
-        rb = pyramid.build_blurred_pyramid(rf32, nl, sf)
         # FAST+NMS of all levels of both images in one kernel launch
-        nms = fast_cuda.fast_nms_strength_levels(lp + rp)
-        fl: Features = self.extractor.extract_from_pyramid(lp, lb, nms[:nl])
-        fr: Features = self.extractor.extract_from_pyramid(rp, rb, nms[nl:])
+        self.n_fast = 2 * cfg.orb.num_levels
+
+    def levels(self, left: torch.Tensor, right: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Both pyramids, then both blurred pyramids; each pyramid is shared
+        between extraction and stereo matching."""
+        (lp, lb), (rp, rb) = self.extractor.pyramids(left), self.extractor.pyramids(right)
+        return (*lp, *rp, *lb, *rb)
+
+    def features(self, images, levels, maps) -> FrameData:
+        cfg = self.cfg
+        nl = cfg.orb.num_levels
+        lp, rp, lb, rb = (list(levels[i * nl:(i + 1) * nl]) for i in range(4))
+        fl: Features = self.extractor.extract_from_pyramid(lp, lb, maps[:nl])
+        fr: Features = self.extractor.extract_from_pyramid(rp, rb, maps[nl:])
         # stereo matching searches raw rectified rows; undistortion applies to
         # the geometry coordinates only
         sm = stereo_match.match_stereo(fl, fr, lp, rp, self.K, self.extractor.scales)
@@ -84,7 +110,7 @@ class StereoFrontend:
         )
 
 
-class RgbdFrontend:
+class RgbdFrontend(Frontend):
     """grayscale + registered depth map -> FrameData.
 
     The RGB-D Frame constructor (frame.cpp:120-158 + ComputeStereoFromRGBD
@@ -98,10 +124,17 @@ class RgbdFrontend:
         self.cfg = cfg
         self.K = Intrinsics(cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy, cfg.camera.bf)
         self.extractor = OrbExtractor(cfg.orb, max_features=cfg.capacity.max_features)
+        self.n_fast = cfg.orb.num_levels
 
-    def __call__(self, gray: torch.Tensor, depth: torch.Tensor) -> FrameData:
+    def levels(self, gray: torch.Tensor, depth: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        lp, lb = self.extractor.pyramids(gray.to(torch.uint8))
+        return (*lp, *lb)
+
+    def features(self, images, levels, maps) -> FrameData:
         cfg = self.cfg
-        f: Features = self.extractor.extract(gray.to(torch.uint8))
+        nl = self.n_fast
+        f: Features = self.extractor.extract_from_pyramid(list(levels[:nl]), list(levels[nl:]), maps)
+        depth = images[1]
         H, W = depth.shape
         # torch.round, like jnp.round, rounds half to even
         ui = torch.clamp(torch.round(f.xy[:, 0]).to(torch.int64), 0, W - 1)
@@ -126,7 +159,7 @@ class RgbdFrontend:
         )
 
 
-class MonoFrontend:
+class MonoFrontend(Frontend):
     """One grayscale image -> FrameData with u_right = depth = -1.
 
     feature_multiplier scales the feature budget and the slots (the monocular
@@ -137,9 +170,15 @@ class MonoFrontend:
         self.K = Intrinsics(cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy, 0.0)
         orb = dataclasses.replace(cfg.orb, num_features=cfg.orb.num_features * feature_multiplier)
         self.extractor = OrbExtractor(orb, max_features=cfg.capacity.max_features * feature_multiplier)
+        self.n_fast = cfg.orb.num_levels
 
-    def __call__(self, img: torch.Tensor) -> FrameData:
-        f: Features = self.extractor.extract(img)
+    def levels(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        lp, lb = self.extractor.pyramids(img)
+        return (*lp, *lb)
+
+    def features(self, images, levels, maps) -> FrameData:
+        nl = self.n_fast
+        f: Features = self.extractor.extract_from_pyramid(list(levels[:nl]), list(levels[nl:]), maps)
         minus1 = torch.full((f.xy.shape[0],), -1.0, dtype=torch.float32, device=f.xy.device)
         return FrameData(
             xy=_undistort_if_needed(f.xy, self.cfg, self.K),

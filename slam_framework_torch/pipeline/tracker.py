@@ -48,9 +48,18 @@ stage first lands the first one's BA: pipeline/local_mapper.py). On a loss every
 recorded lost and dropped: at depth 2 that is the chunk buffered behind the
 lost one. The monocular mapper stays synchronous at either depth.
 
+A dispatched frame runs as stages (`_run_frame`): the front-end's two, with
+its one FAST+NMS launch between them, then motion, the fallback where the
+motion path keeps fewer than FALLBACK_BELOW inliers, and the local map. On the
+card each stage is a CUDA graph captured on first use and replayed after
+(pipeline/stage_graphs.py), over tensors held at fixed addresses: the staged
+frame is copied in, the device state (`_dstate`) and the block (`_block`)
+are held and assigned by copying in, and the local stage writes the next state
+in place. Initialization and relocalization run eagerly.
+
 Not carried: the reference's `lax.cond` around the fallback ladder is a host
-branch here, one read of the motion path's inliers per frame inside
-`_track_core`, so a dispatch waits for each frame's motion tracking; and the
+branch here, one read of the motion path's inliers per frame between the
+motion and local stages, so a dispatch waits for each frame's motion tracking; and the
 reference's packing of a fetch into one buffer (`_pack_payload`, the zero
 placeholders `_ph`, `aux_fetch`), which served a remote device behind a
 per-call latency.
@@ -68,9 +77,11 @@ from slam_framework_torch import resolve_device
 from slam_framework_torch.config import SlamConfig
 from slam_framework_torch.geometry import se3
 from slam_framework_torch.map.arena import MapArena
+from slam_framework_torch.ops import fast_cuda
 from slam_framework_torch.pipeline import track_ops
-from slam_framework_torch.pipeline.frame import FrameData, RgbdFrontend, StereoFrontend
+from slam_framework_torch.pipeline.frame import FrameData, Frontend, RgbdFrontend, StereoFrontend
 from slam_framework_torch.pipeline.local_mapper import LocalMapper
+from slam_framework_torch.pipeline.stage_graphs import Ran, StageGraphs, copy_into, hold
 from slam_framework_torch.utils.observability import MetricsLog, StageTimers, trace_span
 
 
@@ -95,6 +106,19 @@ class DeviceTrackState(NamedTuple):
     pt_pos: torch.Tensor      # (N,3) world position of the point tracked by each feature
     pt_mask: torch.Tensor     # (N,) bool — feature has a map point
     assoc_slot: torch.Tensor  # (N,) int32 — local-block slot per feature (-1 none)
+
+
+class MotionResult(NamedTuple):
+    """What the local-map stage starts from: the motion path's result, or the
+    fallback's where that locked on better."""
+
+    pose: torch.Tensor       # (4,4) Tcw
+    prior: torch.Tensor      # (N,) int32 — local-block slot per feature (-1 none)
+    n_inliers: torch.Tensor  # () int32 — the motion path's inliers
+
+
+# the reference-keyframe fallback runs when the motion path keeps fewer inliers
+FALLBACK_BELOW = 60
 
 
 # summary layout (f32): [0:16]=pose, [16]=n_matches, [17]=n_inliers,
@@ -148,14 +172,40 @@ class StereoTracker:
         self.relocalizer = None            # set by SlamSystem once place recognition exists
         self.localization_only = False     # ActivateLocalizationMode (slam_system.h:38)
         self._last_reloc_fid = -(10**9)    # start of the strict inlier bar (tracker.cpp:1166)
-        self._dstate: Optional[DeviceTrackState] = None
-        self._block: Optional[track_ops.PointBlock] = None
+        # the device state and the block, held where the captured stages read them
+        self._state_held: Optional[DeviceTrackState] = None
+        self._block_held: Optional[track_ops.PointBlock] = None
+        self._stage_graphs = StageGraphs(self.device)
+        self.frontend_frames = 0   # frames through a front-end: dispatched, initialization, relocalization
+        self.replayed_frames = 0   # dispatched frames whose every stage ran as a graph replay
+        self.graph_captures = 0    # stage graphs captured
+        self.fallback_replays = 0  # fallback stages that ran as a graph replay
         self._block_ids: Optional[np.ndarray] = None   # (P,) int32 — point id per block slot
         self._block_pos_host: Optional[np.ndarray] = None
         self._buf = []                 # buffered (frame, frame_id, timestamp) awaiting a chunk
         self._pending = []             # dispatched chunks awaiting a fetch (see _dispatch)
         self._pending_remap = None     # pre-rebuild block ids awaiting the device-state remap
         self._deferred = []            # [(kind, fn)] host work run after the next dispatch
+
+    @property
+    def _dstate(self) -> Optional[DeviceTrackState]:
+        """The device tracking state. Assigning one copies it into the tensors
+        held here (made on the first assignment), which the stages read and
+        the local stage rewrites in place."""
+        return self._state_held
+
+    @_dstate.setter
+    def _dstate(self, state: DeviceTrackState) -> None:
+        self._state_held = hold(self._state_held, state)
+
+    @property
+    def _block(self) -> Optional[track_ops.PointBlock]:
+        """The local point block, held like `_dstate`: a rebuild copies in."""
+        return self._block_held
+
+    @_block.setter
+    def _block(self, block: track_ops.PointBlock) -> None:
+        self._block_held = hold(self._block_held, block)
 
     def _make_frontend(self):
         if self.cfg.sensor == "rgbd":
@@ -178,7 +228,19 @@ class StereoTracker:
 
     def _track_core(self, state: DeviceTrackState, fd: FrameData, block: track_ops.PointBlock):
         """One tracked frame: motion model, fallback ladder, local map, velocity,
-        summary, fusion candidates and the per-slot visible/found counts."""
+        summary, fusion candidates and the per-slot visible/found counts. The
+        composition of the stages that `_run_frame` replays."""
+        motion = self._motion_stage(state, fd)
+        # TrackReferenceKeyFrame ladder (tracker.cpp:486-540) when the motion
+        # lock is weak. The reference's lax.cond is a host branch here: one
+        # device->host read per frame.
+        if int(motion.n_inliers) < FALLBACK_BELOW:
+            motion = self._fallback_stage(state, fd, block, motion)
+        return self._local_stage(state, fd, block, motion)
+
+    def _motion_stage(self, state: DeviceTrackState, fd: FrameData) -> MotionResult:
+        """TrackWithMotionModel: the velocity's prediction, the search against
+        the last frame and the pose optimisation."""
         cfg = self.cfg
         pred = se3.compose(state.velocity, state.pose)
         res1 = track_ops.track_motion(
@@ -188,25 +250,31 @@ class StereoTracker:
         )
         ok1 = (res1.assoc >= 0) & res1.inlier
         minus1 = torch.full_like(res1.assoc, -1)
-        prior_motion = torch.where(ok1, state.assoc_slot[torch.clamp(res1.assoc, min=0).long()], minus1)
+        prior = torch.where(ok1, state.assoc_slot[torch.clamp(res1.assoc, min=0).long()], minus1)
+        return MotionResult(pose=res1.pose, prior=prior, n_inliers=res1.n_inliers)
 
-        # TrackReferenceKeyFrame ladder (tracker.cpp:486-540) when the motion
-        # lock is weak (< 60 inliers). The reference's lax.cond is a host
-        # branch here: one device->host read per frame.
-        pose1, prior = res1.pose, prior_motion
-        if int(res1.n_inliers) < 60:
-            fb = track_ops.track_reference_fallback(fd, state.pose, block, K=self.K)
-            prior_fb = torch.where((fb.assoc >= 0) & fb.inlier, fb.assoc, minus1)
-            # adopt the fallback only when it locked on better than the motion path
-            good = (fb.n_inliers >= 10) & (fb.n_inliers > res1.n_inliers)
-            pose1 = torch.where(good, fb.pose, res1.pose)
-            prior = torch.where(good, prior_fb, prior_motion)
+    def _fallback_stage(self, state: DeviceTrackState, fd: FrameData, block: track_ops.PointBlock,
+                        motion: MotionResult) -> MotionResult:
+        """The reference-keyframe fallback, adopted only where it locked on
+        better than the motion path."""
+        fb = track_ops.track_reference_fallback(fd, state.pose, block, K=self.K)
+        prior_fb = torch.where((fb.assoc >= 0) & fb.inlier, fb.assoc, torch.full_like(fb.assoc, -1))
+        good = (fb.n_inliers >= 10) & (fb.n_inliers > motion.n_inliers)
+        return motion._replace(pose=torch.where(good, fb.pose, motion.pose),
+                               prior=torch.where(good, prior_fb, motion.prior))
 
+    def _local_stage(self, state: DeviceTrackState, fd: FrameData, block: track_ops.PointBlock,
+                     motion: MotionResult):
+        """TrackLocalMap from the motion path's (or the fallback's) pose, then
+        the new state, the summary, the fusion candidates, the feature pack and
+        the per-slot visible/found counts."""
+        cfg = self.cfg
+        minus1 = torch.full_like(motion.prior, -1)
         # th=2: the block refreshes one chunk late, so the wider window recovers
         # the associations a fresh map would give with th=1
         wh = (cfg.camera.width, cfg.camera.height)
         res2 = track_ops.track_local_map(
-            fd, pose1, prior, block, K=self.K, th=2.0,
+            fd, motion.pose, motion.prior, block, K=self.K, th=2.0,
             num_levels=cfg.orb.num_levels, scale_factor=cfg.orb.scale_factor, image_wh=wh,
         )
         ok2 = (res2.assoc >= 0) & res2.inlier
@@ -236,7 +304,7 @@ class StereoTracker:
             torch.stack([
                 res2.n_matches.to(f32), res2.n_inliers.to(f32),
                 (close & (slot >= 0)).sum().to(f32), (close & (slot < 0)).sum().to(f32),
-                fd.valid.sum().to(f32), res2.visible.sum().to(f32), res1.n_inliers.to(f32),
+                fd.valid.sum().to(f32), res2.visible.sum().to(f32), motion.n_inliers.to(f32),
             ]),
             torch.zeros(SUMMARY_LEN - 23, dtype=f32, device=slot.device),
         ])
@@ -259,11 +327,72 @@ class StereoTracker:
         found.index_add_(0, found_idx, torch.ones_like(slot))
         return new_state, summary, pack, fd.desc, vis, found[:P]
 
+    def _staged(self) -> bool:
+        """Whether frames run as the stages that `_track_core` and the
+        front-end's call are made of. Where either is replaced, on the instance
+        or on its class (slambench/faults.py plants its faults so, and
+        tools/replay_blackout.py records stages so), the replacement runs
+        instead, eagerly."""
+        return (getattr(self._track_core, "__func__", None) is StereoTracker._track_core
+                and type(self.frontend).__call__ is Frontend.__call__)
+
+    def _run_frame(self, frame: torch.Tensor, block: track_ops.PointBlock):
+        """One frame through the stages of the front-end and of `_track_core`,
+        each a CUDA graph on the card (pipeline/stage_graphs.py), captured per
+        frame shape and dtype and block capacity and replayed after: the frame
+        is copied in, the FAST+NMS launch runs between the front-end's two
+        stages, the motion path's inliers are read once, the fallback stage runs
+        only under FALLBACK_BELOW of them, and the local stage writes the next
+        device state in place as its last step. Returns the frame's summary,
+        pack and descriptors as fresh tensors, and its visible / found counts
+        held until the next frame."""
+        g = self._stage_graphs
+        key = (tuple(frame.shape), frame.dtype)
+        ckey = key + (block.pos.shape[0],)
+        fe = self.frontend
+        with trace_span("tracker/frontend"):
+            images = g.keep(("frame", key), (frame,))[0]
+            ran = [g.run(("levels", key), lambda: g.keep(("levels", key), fe.levels(*images)))]
+            levels = g.held[("levels", key)]
+            maps = g.keep(("maps", key), fast_cuda.fast_nms_strength_levels(levels[: fe.n_fast]))
+            ran.append(g.run(("features", key),
+                             lambda: g.keep(("features", key), fe.features(images, levels, maps))))
+            fd = g.held[("features", key)]
+        with trace_span("tracker/track_core"):
+            state = self._dstate
+            ran.append(g.run(("motion", ckey), lambda: g.keep(("motion", ckey), self._motion_stage(state, fd))))
+            motion = g.held[("motion", ckey)]
+            if int(motion.n_inliers) < FALLBACK_BELOW:
+                ran.append(g.run(("fallback", ckey),
+                                 lambda: copy_into(motion, self._fallback_stage(state, fd, block, motion))))
+                self.fallback_replays += ran[-1] is Ran.REPLAY
+
+            def local() -> None:
+                new_state, *out = self._local_stage(state, fd, block, motion)
+                g.keep(("local", ckey), out)
+                copy_into(state, new_state)  # after every read of the old state
+
+            ran.append(g.run(("local", ckey), local))
+            summary, pack, desc, vis, found = g.held[("local", ckey)]
+        self.replayed_frames += all(r is Ran.REPLAY for r in ran)
+        self.graph_captures += sum(r is Ran.CAPTURE for r in ran)
+        return summary.clone(), pack.clone(), desc.clone(), vis, found
+
+    def _run_frame_eagerly(self, frame: torch.Tensor, block: track_ops.PointBlock):
+        """One frame through the front-end's call and `_track_core` as they
+        are, for `_staged() == False`; returns what `_run_frame` returns."""
+        with trace_span("tracker/frontend"):
+            fd = self.frontend(*frame)
+        with trace_span("tracker/track_core"):
+            state, summary, pack, desc, vis, found = self._track_core(self._dstate, fd, block)
+        self._dstate = state
+        return summary, pack, desc, vis, found
+
     def _dispatch(self) -> None:
         """Launch the front-end and the tracking core for every buffered frame
         against one block, and queue the chunk's device tensors in `_pending`.
         Nothing here waits for the chunk's results, except the per-frame read
-        inside `_track_core`."""
+        of the motion path's inliers."""
         if self._pending_remap is not None:
             with self.timers.time("dispatch/remap"):
                 self._remap_device_state(self._pending_remap)
@@ -274,18 +403,15 @@ class StereoTracker:
         vis = torch.zeros(P, dtype=torch.int32, device=self.device)
         found = torch.zeros_like(vis)
         summaries, packs, descs = [], [], []
-        state = self._dstate
+        run = self._run_frame if self._staged() else self._run_frame_eagerly
         for frame, _fid, _ts in batch:
-            with trace_span("tracker/frontend"):
-                fd = self.frontend(*frame)
-            with trace_span("tracker/track_core"):
-                state, summary, pack, desc, v, f = self._track_core(state, fd, block)
+            summary, pack, desc, v, f = run(frame, block)
+            self.frontend_frames += 1
             summaries.append(summary)
             packs.append(pack)
             descs.append(desc)
             vis += v
             found += f
-        self._dstate = state
         self._pending.append((
             [b[1] for b in batch], [b[2] for b in batch],
             torch.stack(summaries), torch.stack(packs), torch.stack(descs), vis, found, self._block_ids,
@@ -348,11 +474,13 @@ class StereoTracker:
                              + (" in float32" if self.cfg.sensor == "rgbd" else "")
                              + f", not {tuple(frame.shape)} {frame.dtype}")
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
+            self.frontend_frames += 1
             ok = self._initialize(frame, timestamp)
             self.state = TrackingState.OK if ok else TrackingState.NOT_INITIALIZED
             self.frame_id += 1
             return self.records[-1].pose if ok else None
         if self.state == TrackingState.LOST:
+            self.frontend_frames += 1
             with self.timers.time("relocalize"), trace_span("tracker/relocalize"):
                 self._track_lost(frame, timestamp)
             self.frame_id += 1

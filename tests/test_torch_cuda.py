@@ -1,11 +1,12 @@
-"""Card-only checks of the port's CUDA kernel. This file imports neither jax nor
-the reference package, so it also runs on a machine that has only the port's
-dependencies:
+"""Card-only checks of the port's CUDA kernel and of the tracker's stage graphs.
+This file imports neither jax nor the reference package, so it also runs on a
+machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance: none — the kernel computes the same fp32 min/max/compare chain as
-its plain version, on the whole map.
+its plain version, on the whole map, and a replayed stage graph runs the same
+kernels on the same inputs as the stage run eagerly.
 """
 
 import numpy as np
@@ -130,3 +131,73 @@ def test_rgbd_and_mono_systems_take_the_card_by_default(sensor):
 
     system = SlamSystem(SlamConfig(sensor=sensor), place_recognition=False)
     assert system.device.type == "cuda" and system.tracker.device.type == "cuda"
+
+
+N_DRIVE = 44  # frames of the bench world: depth 2 from its fourth keyframe, a keyframe every few frames
+
+
+@pytest.fixture(scope="module")
+def replayed_and_eager():
+    """The same bench-world frames through two trackers on the card: one
+    replaying its stage graphs, one running the same stages eagerly (its
+    capture hook refused)."""
+    dev = _card()
+    from slam_framework_torch.config import SlamConfig
+    from slam_framework_torch.pipeline import stage_graphs
+    from slam_framework_torch.pipeline.tracker import StereoTracker
+    from slam_framework_torch.tools.track_bench_world import bench_world
+
+    cfg = SlamConfig()
+    world = bench_world(cfg, N_DRIVE)
+    pairs = [world.stereo_pair(f) for f in range(N_DRIVE)]
+    runs = {}
+    for name in ("replayed", "eager"):
+        with pytest.MonkeyPatch.context() as mp:
+            if name == "eager":
+                mp.setattr(stage_graphs.StageGraphs, "_capturable", lambda self: False)
+            tracker = StereoTracker(cfg, sync_every=4, device=dev)
+            tracker.MATURE_MAP_KFS = 4
+            frames, staged = [], tracker._run_frame
+
+            def recorded(frame, block, staged=staged, frames=frames, tracker=tracker):
+                out = staged(frame, block)
+                frames.append([t.clone() for t in out[:3]] + [t.clone() for t in tracker._dstate])
+                return out
+
+            tracker._run_frame = recorded
+            before = fast_cuda.launches
+            for f in range(N_DRIVE):
+                tracker.track(*pairs[f], world.timestamps[f])
+            tracker.flush()
+            torch.cuda.synchronize()
+            runs[name] = {"tracker": tracker, "frames": frames, "launches": fast_cuda.launches - before}
+    return runs
+
+
+def test_replayed_stages_are_bit_equal_to_the_same_stages_run_eagerly(replayed_and_eager):
+    rep, eag = replayed_and_eager["replayed"], replayed_and_eager["eager"]
+    assert len(rep["frames"]) == len(eag["frames"]) == N_DRIVE - 1
+    names = ("summary", "pack", "desc") + tuple(f"state.{n}" for n in rep["tracker"]._dstate._fields)
+    for k, (a, b) in enumerate(zip(rep["frames"], eag["frames"])):
+        for name, x, y in zip(names, a, b, strict=True):
+            assert torch.equal(x, y), (k, name, float((x.double() - y.double()).abs().max()))
+    ta, tb = rep["tracker"], eag["tracker"]
+    assert [r.lost for r in ta.records] == [r.lost for r in tb.records] == [False] * N_DRIVE
+    for ra, rb in zip(ta.records, tb.records):
+        assert np.array_equal(ra.pose, rb.pose)
+    # a keyframe's block rebuild and remap crossed, at depth 2
+    assert ta.arena.num_kfs >= 6 and ta._current_depth() == 2
+
+
+def test_replays_launch_fast_once_per_frame_and_capture_once_per_stage(replayed_and_eager):
+    rep, eag = replayed_and_eager["replayed"], replayed_and_eager["eager"]
+    for run in (rep, eag):
+        assert run["launches"] == run["tracker"].frontend_frames == N_DRIVE
+    ta = rep["tracker"]
+    stages = [key[0] for key in ta._stage_graphs._graphs]
+    assert sorted(stages) == sorted({"levels", "features", "motion", "local"} | set(stages) & {"fallback"})
+    assert ta.graph_captures == len(stages)
+    # every dispatched frame replays but the first, and the one that captured the fallback
+    assert ta.replayed_frames >= N_DRIVE - 1 - 1 - ("fallback" in stages)
+    tb = eag["tracker"]
+    assert (tb.replayed_frames, tb.graph_captures, tb.fallback_replays) == (0, 0, 0)
